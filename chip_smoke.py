@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — one private lookup through the serving
+pipeline — at the size of the paper's own workload (10^6 records of
+1536 bytes, d = 100 databases, Sparse-PIR at θ = 0.25 and Chor), builds the
+four CUDA kernels from the sources in this tree, holds each against its
+plain PyTorch version on the card (bit for bit: tolerance 0, PIR is exact),
+times them with CUDA events, and checks that the pipeline's answers equal
+the stored records and that its path went through the kernels (launch
+counters). One JSON line per phase; the last line is the verdict.
+
+Needs a CUDA device and ``nvcc``; exits non-zero without printing a verdict
+when there is no device. Imports only ``repro_torch``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published peaks of one H100 SXM (NVIDIA data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+
+CSRC = "src/repro_torch/kernels/csrc/"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+    """Mean milliseconds of ``fn`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest absolute difference of two integer tensors (0 = bit-equal)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def random_mask(rng, q: int, n: int, density: float, device) -> torch.Tensor:
+    m = rng.random((q, n), dtype=np.float32) < density
+    return torch.from_numpy(m.astype(np.uint8)).to(device)
+
+
+def check_kernel(name, shape, kernel_fn, plain_fn, bound, source, replaces,
+                 library_fn=None, iters=10, plain_iters=2):
+    """Compare one kernel with its plain version and time both."""
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"{name} {shape}: kernel differs from the plain "
+                             f"version (max abs err {err}, tolerance 0)")
+    del got, want
+    bound_ms, bound_by = bound
+    row = {
+        "name": name, "route": "cuda", "source": CSRC + source,
+        "replaces": replaces, "shape": shape, "launches": 0,
+        "max_abs_err": err, "tolerance": 0,
+        "ms": time_ms(kernel_fn, iters=iters),
+        "plain_ms": time_ms(plain_fn, warmup=1, iters=plain_iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": (
+            None if library_fn is None else time_ms(library_fn, iters=3)
+        ),
+    }
+    return row
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+
+    from repro_torch.configs import pir_ct
+    from repro_torch.db import make_synthetic_store, packing
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.fused import (
+        fused_block_w, fused_gather_fold, fused_gather_fold_plain,
+        fused_smem_budget,
+    )
+    from repro_torch.kernels.gather_xor import (
+        gather_xor, gather_xor_plain, indices_from_mask,
+    )
+    from repro_torch.kernels.parity_matmul import (
+        parity_matmul, parity_matmul_plain,
+    )
+    from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
+    from repro_torch.serve import ShardedBackend
+
+    t_script = time.perf_counter()
+    dev = torch.device("cuda")
+    wrappers = {
+        "xor_fold": xor_fold, "gather_xor": gather_xor,
+        "fused_gather_fold": fused_gather_fold,
+        "parity_matmul": parity_matmul,
+    }
+
+    # ------------------------------------------------------------ 1 device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    # ------------------------------------------------------------- 2 build
+    _build.library()
+    report = _build.build_report()
+    emit({"phase": "build", **report})
+
+    cfg = pir_ct.CONFIG
+    n, rb = cfg.n_records, cfg.record_bytes
+    rng = np.random.default_rng(7)
+    t0 = time.perf_counter()
+    store = make_synthetic_store(n, rb, seed=0, device=dev)
+    w = store.words
+    emit({"phase": "store", "n": n, "record_bytes": rb, "words": w,
+          "bytes": store.nbytes, "seconds": time.perf_counter() - t0})
+
+    # ----------------------------------------------------------- 3 kernels
+    rows = []
+    q = 8
+    mask = random_mask(rng, q, n, 0.5, dev)
+    rows.append(check_kernel(
+        "xor_fold", {"n": n, "W": w, "q": q, "density": 0.5},
+        lambda: xor_fold(store.packed, mask),
+        lambda: xor_fold_plain(store.packed, mask),
+        ((n * w * 4 + q * n + q * w * 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
+        "xor_fold.cu", "src/repro/kernels/xor_fold.py:79",
+    ))
+
+    m = ops.sparse_index_budget(n, cfg.theta)
+    smask = random_mask(rng, q, n, cfg.theta, dev)
+    idx = indices_from_mask(smask, m)
+    distinct = int(torch.unique(idx[idx >= 0]).numel())
+    rows.append(check_kernel(
+        "gather_xor",
+        {"n": n, "W": w, "q": q, "m": m, "distinct_rows": distinct,
+         "block_w": 128, "grid_order": "qwm", "m_split_atomic_xor": True},
+        lambda: gather_xor(store.packed, idx),
+        lambda: gather_xor_plain(store.packed, idx),
+        ((distinct * w * 4 + q * m * 4 + q * w * 4) / HBM_BYTES_PER_S * 1e3,
+         "bytes"),
+        "gather_xor.cu", "src/repro/kernels/gather_xor.py:97",
+    ))
+    # the index matrix is the prefix-sum compaction of the mask: the
+    # gather over it must equal the dense fold of the same mask
+    if max_abs_err(gather_xor(store.packed, idx),
+                   xor_fold(store.packed, smask)) != 0:
+        raise AssertionError("gather_xor(indices_from_mask) != xor_fold")
+    # what the dense fold takes on the same sparse masks (it needs no index
+    # compaction): the yardstick for the planner's gather-vs-fold prior
+    rows[-1]["dense_fold_same_masks_ms"] = time_ms(
+        lambda: xor_fold(store.packed, smask))
+    for go in ("qwm", "wqm"):
+        for bw in (32, 128):
+            if max_abs_err(
+                gather_xor(store.packed, idx, block_w=bw, grid_order=go),
+                gather_xor(store.packed, idx),
+            ) != 0:
+                raise AssertionError(f"gather_xor {go}/{bw} differs")
+    del mask, smask, idx
+
+    # fused: the reduced config's shape (its serving path) and the largest
+    # n the shared-memory gate admits at the full record width
+    budget = fused_smem_budget(dev)
+    red = pir_ct.reduced()
+    small = make_synthetic_store(red.n_records, red.record_bytes, seed=0,
+                                 device=dev)
+    n_gate = budget // (8 * 4)
+    fused_shapes = [(red.n_records, red.record_bytes // 4), (n_gate, w)]
+    fused_rows = []
+    for fn_, fw in fused_shapes:
+        fbw = fused_block_w(fn_, fw, device=dev)
+        if fbw == 0:
+            raise AssertionError(f"fused gate refuses n={fn_}, W={fw}")
+        fdb = store.packed[:fn_, :fw].contiguous()
+        fm = ops.sparse_index_budget(fn_, cfg.theta)
+        fidx = indices_from_mask(
+            random_mask(rng, q, fn_, cfg.theta, dev), fm)
+        fdistinct = int(torch.unique(fidx[fidx >= 0]).numel())
+        for go in ("qw", "wq"):
+            if max_abs_err(
+                fused_gather_fold(fdb, fidx, block_w=fbw, grid_order=go),
+                gather_xor(fdb, fidx),
+            ) != 0:
+                raise AssertionError(f"fused {go} differs from gather_xor")
+        fused_rows.append(check_kernel(
+            "fused_gather_fold",
+            {"n": fn_, "W": fw, "q": q, "m": fm,
+             "distinct_rows": fdistinct, "block_w": fbw,
+             "grid_order": "qw", "smem_budget": budget},
+            lambda: fused_gather_fold(fdb, fidx, block_w=fbw),
+            lambda: fused_gather_fold_plain(fdb, fidx),
+            # the function is gather_xor's: only the distinct live rows
+            # need to move, whatever the kernel stages
+            ((fdistinct * fw * 4 + q * fm * 4 + q * fw * 4)
+             / HBM_BYTES_PER_S * 1e3, "bytes"),
+            "fused_gather_fold.cu", "src/repro/kernels/fused.py:190",
+            iters=50, plain_iters=5,
+        ))
+    # the row of the kernel is the main path's shape; the widest slab the
+    # gate admits rides along under "at_gate"
+    fused_rows[0]["at_gate"] = {
+        k: fused_rows[1][k]
+        for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                  "bound_by")}
+    rows.append(fused_rows[0])
+
+    # parity: the shape the main path gives it (the reduced store, one
+    # bucket of 128), and the full 12288 bit columns with n cut so one
+    # launch takes milliseconds (at n = 10^6 the product is 3.1e15
+    # operations)
+    def parity_bound(q_, n_, b_):
+        ops_s = 2.0 * q_ * n_ * b_ / INT8_OPS_PER_S
+        bytes_s = (q_ * n_ + n_ * b_ + q_ * b_) / HBM_BYTES_PER_S
+        return (max(ops_s, bytes_s) * 1e3,
+                "operations" if ops_s > bytes_s else "bytes")
+
+    n_cut, qp = 65536, 128
+    cut_db = store.packed[:n_cut].contiguous()
+    parity_rows = []
+    for pdb, extra in ((small.packed, {}), (cut_db, {"n_cut_from": n})):
+        planes = packing.bitplanes_from_packed(pdb)
+        pn, nb = planes.shape
+        pmask = random_mask(rng, qp, pn, 0.5, dev)
+        a32, b32 = pmask.float(), planes.float()
+        parity_rows.append(check_kernel(
+            "parity_matmul", {"q": qp, "n": pn, "B": nb, **extra},
+            lambda: parity_matmul(pmask, planes),
+            lambda: parity_matmul_plain(pmask, planes),
+            parity_bound(qp, pn, nb),
+            "parity_matmul.cu", "src/repro/kernels/parity_matmul.py:93",
+            library_fn=lambda: torch.matmul(a32, b32),
+            iters=50 if pn < n_cut else 5,
+        ))
+    # the row of the kernel is the main path's shape; the full width rides
+    # along under "at_full_width" (planes, pmask: the full-width operands)
+    parity_rows[0]["at_full_width"] = {
+        k: parity_rows[1][k]
+        for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms")}
+    rows.append(parity_rows[0])
+    if max_abs_err(ops.server_answer_parity(planes, pmask),
+                   xor_fold(cut_db, pmask)) != 0:
+        raise AssertionError("parity path != fold path")
+    del a32, b32
+    emit({"phase": "kernels", "checked": [
+        {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
+                           "library_ms", "max_abs_err", "at_gate",
+                           "at_full_width")
+         if k in r} for r in rows]})
+
+    # fold vs parity(+pack_bits) across scheduler buckets, n cut, full width
+    cross = []
+    for bucket in (8, 16, 32, 64, 128, 256, 512, 1024):
+        bm = random_mask(rng, bucket, n_cut, 0.5, dev)
+        it = 5 if bucket <= 128 else 2
+        cross.append({
+            "bucket": bucket,
+            "fold_ms": time_ms(lambda: ops.server_answer_fold(cut_db, bm),
+                               warmup=1, iters=it),
+            "parity_ms": time_ms(
+                lambda: ops.server_answer_parity(planes, bm),
+                warmup=1, iters=it),
+        })
+    wins = [c["bucket"] for c in cross if c["parity_ms"] < c["fold_ms"]]
+    emit({"phase": "crossover", "n": n_cut, "B": nb, "buckets": cross,
+          "measured_crossover": min(wins) if wins else None,
+          "configured_crossover": ops.parity_crossover_batch(n, rb * 8)})
+    del planes, pmask, cut_db
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- 4-6 the main path
+    for fn in wrappers.values():
+        fn.launches = 0
+    deferred = []
+
+    def serve(label, cfg_, store_, flushes, batch, expect_kernel,
+              expect_path, backend=None, breakdown=False):
+        kw = {"backend": backend} if backend is not None else {}
+        pipe = pir_ct.make_serving_pipeline(
+            cfg_, store=store_, device=dev, seed=3, **kw)
+        times = []
+        served = 0
+        torch.cuda.reset_peak_memory_stats()
+
+        def submit_batch():
+            picks = rng.integers(0, store_.n, size=batch)
+            for c, i in enumerate(picks):
+                if not pipe.submit(f"client-{c}", int(i)):
+                    raise AssertionError("budget refused a query")
+            return picks
+
+        def check(out, picks):
+            for c, i in enumerate(picks):
+                if not np.array_equal(out[f"client-{c}"],
+                                      store_.record_bytes(int(i))):
+                    raise AssertionError(
+                        f"{label}: wrong record for index {int(i)}")
+
+        for f in range(flushes):
+            before = wrappers[expect_kernel].launches
+            picks = submit_batch()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pipe.flush()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            check(out, picks)
+            served += batch
+            grew = wrappers[expect_kernel].launches - before
+            if grew != cfg_.d:
+                raise AssertionError(
+                    f"{label}: {expect_kernel} launched {grew} times in one "
+                    f"batch, expected d={cfg_.d}")
+        if pipe.backend.path_counts[expect_path] != cfg_.d * flushes:
+            raise AssertionError(f"{label}: {pipe.backend.path_counts}")
+        line = {
+            "phase": label, "scheme": cfg_.scheme, "n": store_.n,
+            "record_bytes": cfg_.record_bytes, "d": cfg_.d,
+            "batch": batch, "flushes": flushes, "served": served,
+            "flush_s": times, "path_counts": dict(pipe.backend.path_counts),
+            "backend": pipe.backend.backend_name,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "target_batch": pipe.scheduler.target_batch,
+            "launches": {k: f_.launches for k, f_ in wrappers.items()},
+        }
+        if breakdown:
+            # one more batch through the pipeline's own entry points, cut
+            # into its phases with a synchronisation after each
+            before = wrappers[expect_kernel].launches
+            picks = submit_batch()
+            cut = pipe.take_batch()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            planned = pipe.plan_requests(cut)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t
+            t = time.perf_counter()
+            results = pipe.execute_planned(planned)
+            torch.cuda.synchronize()
+            execute_s = time.perf_counter() - t
+            check({r.client: a for r, a in results}, picks)
+            grew = wrappers[expect_kernel].launches - before
+            if grew != cfg_.d:
+                raise AssertionError(
+                    f"{label}: {expect_kernel} launched {grew} times in the "
+                    f"batch cut into phases, expected d={cfg_.d}")
+            line["breakdown"] = {"plan_s": plan_s, "execute_s": execute_s}
+            line["launches"] = {k: f_.launches for k, f_ in wrappers.items()}
+            # steps of this batch re-run outside the entry points are
+            # measurement, not the main path: they wait until the main
+            # path's launch counts have been read
+            deferred.append((label, pipe, planned))
+        emit(line)
+
+    online = dataclasses.replace(cfg, query_batch=8)
+    serve("serve_sparse_ct", online, store, 2, 8, "gather_xor", "sparse",
+          breakdown=True)
+    serve("serve_chor_ct", dataclasses.replace(online, scheme="chor"),
+          store, 2, 8, "xor_fold", "fold", breakdown=True)
+    serve("serve_reduced_sparse", red, small, 2, 8, "fused_gather_fold",
+          "sparse")
+    big_bucket = dataclasses.replace(red, scheme="chor", query_batch=128)
+    serve("serve_reduced_chor_parity", big_bucket, small, 1, 128,
+          "parity_matmul", "parity",
+          backend=ShardedBackend(small, backend=big_bucket.backend,
+                                 parity_min_batch=128, device=dev))
+
+    # the main path ends here: read the wrappers' counts before any launch
+    # made only to measure
+    counts = {k: f_.launches for k, f_ in wrappers.items()}
+    for name, count in counts.items():
+        if count <= 0:
+            raise AssertionError(f"main path never launched {name}")
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+
+    # the d per-server answers of a planned batch enqueued back to back
+    # with ONE synchronisation (against answer_batch's d), and the
+    # plain-torch steps around the kernel, per server / per batch
+    for label, pipe, planned in deferred:
+        servers = range(len(planned.routed.servers))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for pos in servers:
+            planned.exec_plan(planned.routed.payload[pos])
+        torch.cuda.synchronize()
+        extra = {"phase": "breakdown", "of": label,
+                 "answers_one_sync_s": time.perf_counter() - t,
+                 "exec_plan": planned.exec_plan.describe()}
+        masks0 = planned.routed.payload[0]
+        m_budget = planned.exec_plan.m_budget
+        if m_budget is not None:
+            extra["indices_from_mask_ms"] = time_ms(
+                lambda: indices_from_mask(masks0, m_budget), iters=5)
+        stacked = torch.stack([
+            planned.exec_plan(planned.routed.payload[pos])
+            for pos in servers])
+        extra["reconstruct_ms"] = time_ms(
+            lambda: pipe.router.finalize(planned.routed, stacked), iters=5)
+        del stacked
+        emit(extra)
+    del deferred
+
+    # ------------------------------------------------------------ 7 verdict
+    emit({"kernels": rows})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_script})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

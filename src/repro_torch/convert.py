@@ -1,0 +1,95 @@
+"""State carried across packages: stores and wire payloads as numpy.
+
+Data takes the place of weights in this system. These functions take and
+return **numpy arrays only**, so this package never imports the reference
+package: a caller that holds the reference's store or ``Queries`` moves
+them through numpy, and both packages then compute on the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core.protocol import Queries
+from repro_torch.db import packing
+from repro_torch.db.store import RecordStore
+
+__all__ = [
+    "store_from_numpy",
+    "store_to_numpy",
+    "queries_from_numpy",
+    "queries_to_numpy",
+]
+
+
+def _owned(a, dtype) -> np.ndarray:
+    """A C-contiguous array torch may alias (read-only inputs are copied)."""
+    arr = np.ascontiguousarray(a, dtype=dtype)
+    return arr if arr.flags.writeable else arr.copy()
+
+
+def store_from_numpy(
+    packed_u32: np.ndarray, record_bits: int, device: DeviceLike = None
+) -> RecordStore:
+    """[n, W] uint32 packed words + the record width -> a store on
+    ``device`` (``None``: the CUDA card)."""
+    packed_u32 = np.asarray(packed_u32)
+    if packed_u32.ndim != 2 or packed_u32.dtype != np.uint32:
+        raise ValueError("packed_u32 must be a [n, W] uint32 array")
+    if packing.words_per_record(record_bits) != packed_u32.shape[1]:
+        raise ValueError(
+            f"record_bits={record_bits} does not match W={packed_u32.shape[1]}"
+        )
+    dev = resolve_device(device)
+    return RecordStore(
+        packed=packing.words_from_numpy(packed_u32, dev),
+        record_bits=int(record_bits),
+    )
+
+
+def store_to_numpy(store: RecordStore) -> Tuple[np.ndarray, int]:
+    """A store -> ([n, W] uint32 packed words, record_bits)."""
+    return packing.words_to_numpy(store.packed), store.record_bits
+
+
+def queries_from_numpy(
+    kind: str,
+    payload: np.ndarray,
+    servers: Sequence[int],
+    q_idx: np.ndarray,
+    theta: Optional[float] = None,
+    device: DeviceLike = None,
+) -> Queries:
+    """A wire payload ([d, B, n] {0,1} masks) -> :class:`Queries` on
+    ``device``."""
+    if kind != "mask":
+        raise NotImplementedError(
+            f"wire kind {kind!r} is not ported yet; see ROADMAP.md Queue A"
+        )
+    dev = resolve_device(device)
+    masks = _owned(payload, np.uint8)
+    if masks.ndim != 3:
+        raise ValueError("a mask payload is [d, B, n]")
+    return Queries(
+        kind=kind,
+        payload=torch.from_numpy(masks).to(dev),
+        servers=tuple(int(s) for s in servers),
+        q_idx=torch.from_numpy(_owned(q_idx, np.int32)).to(dev),
+        theta=None if theta is None else float(theta),
+    )
+
+
+def queries_to_numpy(q: Queries) -> dict:
+    """:class:`Queries` -> plain numpy/python fields (the inverse of
+    :func:`queries_from_numpy`'s arguments)."""
+    return {
+        "kind": q.kind,
+        "payload": q.payload.detach().cpu().numpy(),
+        "servers": tuple(q.servers),
+        "q_idx": q.q_idx.detach().cpu().numpy(),
+        "theta": q.theta,
+    }

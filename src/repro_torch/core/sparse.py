@@ -1,0 +1,174 @@
+"""Sparse-PIR (paper §4.3): sparse Chor request vectors.
+
+Each column of the d×n query matrix is sampled by d Bernoulli(θ) trials
+conditioned on even parity (non-queried records) or odd parity (the sought
+record). The paper's equivalent sampling procedure — pick a
+parity-correct Hamming weight from the conditioned binomial pmf, then a
+uniform vector of that weight — is what is implemented, because it is
+rejection-free and vectorises over the whole [B, n] column grid.
+
+Server logic is *identical* to Chor (the server may be agnostic, §4.3);
+only the expected row weight drops from n/2 to θ·n, which the gather_xor
+kernel exploits (C_p = θ·d·n·(c_acc+c_prc), Table 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core import chor
+from repro_torch.db import packing
+
+__all__ = [
+    "parity_weight_logits",
+    "SparsePre",
+    "precompute_query_randomness",
+    "assemble_query_matrix",
+    "gen_query_matrix",
+    "gen_queries",
+    "server_answer",
+    "reconstruct",
+    "retrieve",
+    "expected_row_weight",
+]
+
+server_answer = chor.server_answer
+reconstruct = chor.reconstruct
+
+# columns of the [B, n, d] slot ranking drawn at once: bounds the float32
+# uniforms and the int64 sort order to a few hundred MB at d = 100
+_RANK_CHUNK_COLS = 1 << 17
+
+
+def parity_weight_logits(d: int, theta: float) -> np.ndarray:
+    """log pmf of the Hamming weight of d Bernoulli(θ) trials, conditioned
+    on parity. Returns [2, d+1]: row 0 = even weights, row 1 = odd weights
+    (invalid parities at -inf). Host-side constant (d is small)."""
+    w = np.arange(d + 1, dtype=np.float64)
+    log_comb = np.array(
+        [math.lgamma(d + 1) - math.lgamma(k + 1) - math.lgamma(d - k + 1)
+         for k in range(d + 1)]
+    )
+    if theta >= 0.5:
+        # log(theta) == log(1-theta); avoid log(0) when theta == 0.5 exactly
+        log_pmf = log_comb + d * math.log(0.5)
+    else:
+        log_pmf = log_comb + w * math.log(theta) + (d - w) * math.log1p(-theta)
+    out = np.full((2, d + 1), -np.inf)
+    out[0, 0::2] = log_pmf[0::2]
+    out[1, 1::2] = log_pmf[1::2]
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SparsePre:
+    """The query-independent half of a Sparse-PIR batch plan.
+
+    ``w_even`` are the even-parity weights for every column, ``w_q`` the
+    odd-parity weights the queried columns will be switched to, and
+    ``ranks`` the uniform slot ranking. :func:`assemble_query_matrix`
+    finishes the plan with one scatter + one compare. Single-use by
+    contract. Weights and ranks are stored uint8 (d ≤ 255) to keep a
+    batch at B·n·(d+1) bytes.
+    """
+
+    w_even: torch.Tensor  # [B, n] uint8 even-parity column weights
+    w_q: torch.Tensor     # [B] uint8 odd-parity weights for queried columns
+    ranks: torch.Tensor   # [B, n, d] uint8 slot ranks
+    n: int
+
+    @property
+    def d(self) -> int:
+        return int(self.ranks.shape[-1])
+
+    @property
+    def batch(self) -> int:
+        return int(self.ranks.shape[0])
+
+
+def _categorical(
+    gen: torch.Generator, logits: np.ndarray, count: int
+) -> torch.Tensor:
+    """``count`` draws from softmax(logits). A weight at -inf gets
+    probability exactly 0 — that is what enforces the parity."""
+    logits = logits - logits[np.isfinite(logits)].max()
+    probs = torch.tensor(np.exp(logits), dtype=torch.float32,
+                         device=gen.device)
+    return torch.multinomial(probs, count, replacement=True, generator=gen)
+
+
+def precompute_query_randomness(
+    gen: torch.Generator, n: int, d: int, theta: float, b: int
+) -> SparsePre:
+    """Pre-sample the query-independent randomness for a [B]-batch."""
+    if d < 2:
+        raise ValueError(f"Sparse-PIR needs d >= 2 servers, got {d}")
+    if d > 255:
+        raise ValueError(f"uint8 rank storage needs d <= 255, got {d}")
+    logits = parity_weight_logits(d, theta)
+    dev = gen.device
+    w_even = _categorical(gen, logits[0], b * n).to(torch.uint8).reshape(b, n)
+    w_q = _categorical(gen, logits[1], b).to(torch.uint8)
+    # uniform choice of `w` positions out of d: rank the d slots by iid
+    # uniforms and keep ranks < w. The rank is the inverse permutation of
+    # the sort order, written with one scatter; drawn in chunks of columns.
+    ranks = torch.empty((b, n, d), dtype=torch.uint8, device=dev)
+    slots = torch.arange(d, dtype=torch.uint8, device=dev)
+    for lo in range(0, n, _RANK_CHUNK_COLS):
+        hi = min(n, lo + _RANK_CHUNK_COLS)
+        u = torch.rand((b, hi - lo, d), generator=gen, device=dev)
+        order = torch.argsort(u, dim=-1)
+        ranks[:, lo:hi].scatter_(-1, order, slots.expand(b, hi - lo, d))
+    return SparsePre(w_even=w_even, w_q=w_q, ranks=ranks, n=n)
+
+
+def assemble_query_matrix(pre: SparsePre, q_idx: torch.Tensor) -> torch.Tensor:
+    """Finish a precomputed plan for the actual indices: [d, B, n] uint8."""
+    (b,) = q_idx.shape
+    if b != pre.batch:
+        raise ValueError(f"pre built for batch {pre.batch}, got {b}")
+    dev = pre.w_even.device
+    w = pre.w_even.clone()
+    w[torch.arange(b, device=dev), q_idx.to(dev).long()] = pre.w_q
+    m = (pre.ranks < w.unsqueeze(-1)).to(torch.uint8)  # [B, n, d]
+    return m.permute(2, 0, 1).contiguous()  # [d, B, n]
+
+
+def gen_query_matrix(
+    gen: torch.Generator, n: int, d: int, theta: float, q_idx: torch.Tensor
+) -> torch.Tensor:
+    """Sample the query matrices for a batch: returns [d, B, n] uint8 bits.
+
+    Column parity is even everywhere except at q_idx (odd), so rows XOR to
+    one-hot(q_idx). Each column's weight follows the parity-conditioned
+    Binomial(d, θ); positions of the ones are uniform given the weight.
+    """
+    (b,) = q_idx.shape
+    return assemble_query_matrix(
+        precompute_query_randomness(gen, n, d, theta, b), q_idx
+    )
+
+
+def gen_queries(
+    gen: torch.Generator, n: int, d: int, theta: float, q_idx: torch.Tensor
+) -> torch.Tensor:
+    """Packed wire format: [d, B, ceil(n/32)] words."""
+    return packing.pack_bits(gen_query_matrix(gen, n, d, theta, q_idx))
+
+
+def expected_row_weight(n: int, theta: float) -> float:
+    """E[ones per request vector] = θ·n (paper §4.3)."""
+    return theta * n
+
+
+def retrieve(
+    gen: torch.Generator, store, d: int, theta: float, q_idx: torch.Tensor
+) -> torch.Tensor:
+    """End-to-end Sparse-PIR retrieval (reference path): [B] -> [B, W]."""
+    masks = gen_query_matrix(gen, store.n, d, theta, q_idx)  # [d, B, n]
+    responses = torch.stack([server_answer(store.packed, m) for m in masks])
+    return reconstruct(responses)

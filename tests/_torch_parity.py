@@ -1,0 +1,30 @@
+"""Helpers for the port's parity tests: move data between the JAX
+reference and the torch port through numpy, and make seeded inputs."""
+
+import numpy as np
+import torch
+
+CPU = torch.device("cpu")
+
+
+def words_t2n(t: torch.Tensor) -> np.ndarray:
+    """Packed int32 torch words -> uint32 numpy (the reference's dtype)."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def words_n2t(a) -> torch.Tensor:
+    """uint32 array (numpy or jax) -> packed int32 torch words."""
+    arr = np.ascontiguousarray(np.asarray(a), dtype=np.uint32)
+    return torch.from_numpy(arr.view(np.int32))
+
+
+def seeded_mask(q: int, n: int, seed: int, p: float = 0.4) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.random((q, n)) < p).astype(np.uint8)
+
+
+def seeded_bytes(n: int, rb: int, seed: int) -> np.ndarray:
+    """The bytes ``make_synthetic_store(n, rb, seed)`` packs, in either
+    package."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(n, rb), dtype=np.uint8)

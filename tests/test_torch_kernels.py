@@ -1,0 +1,298 @@
+"""Port vs reference: the four GF(2) answer functions (tolerance zero).
+
+Seeded numpy inputs go through the JAX kernel (Pallas in interpret mode),
+the JAX oracle (``repro.kernels.ref``) and the port's function on the CPU,
+where a wrapper takes its plain PyTorch version — the arithmetic the CUDA
+kernels are held to on the card (tests/test_torch_cuda.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.db import make_synthetic_store as ref_make_store
+from repro.kernels import (
+    fused_block_w as ref_fused_block_w,
+    fused_gather_fold as ref_fused_gather_fold,
+    gather_xor as ref_gather_xor,
+    indices_from_mask as ref_indices_from_mask,
+    ops as ref_ops,
+    parity_matmul as ref_parity_matmul,
+    ref as ref_oracles,
+    xor_fold as ref_xor_fold,
+)
+from repro_torch.db import make_synthetic_store
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.fused import (
+    FUSED_SMEM_FALLBACK_BYTES,
+    fused_block_w,
+    fused_gather_fold,
+    fused_smem_budget,
+)
+from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
+from repro_torch.kernels.parity_matmul import parity_matmul
+from repro_torch.kernels.xor_fold import xor_fold
+
+from _torch_parity import seeded_mask, words_t2n
+
+SHAPES = [
+    # (n records, record_bytes, q queries)
+    (64, 8, 1),
+    (100, 12, 5),       # ragged W
+    (256, 64, 16),
+    (300, 50, 17),      # everything ragged
+    (1024, 4, 33),      # tiny records
+    (37, 129, 3),       # W > block
+]
+EDGE_SHAPES = [(1, 8, 1), (1, 24, 5), (2, 4, 1), (7, 129, 1)]
+NONPOW2_SHAPES = [(91, 12, 3), (137, 24, 7), (333, 36, 5), (1000, 20, 11),
+                  (63, 129, 9)]
+MASK_DTYPES = [(torch.uint8, jnp.uint8), (torch.int32, jnp.int32),
+               (torch.bool, jnp.bool_)]
+
+
+def _case(n, rb, q, seed=0):
+    """The same store and mask for both packages."""
+    rstore = ref_make_store(n=n, record_bytes=rb, seed=seed)
+    tstore = make_synthetic_store(n, rb, seed=seed, device="cpu")
+    mask = seeded_mask(q, n, seed + 1)
+    return rstore, tstore, mask
+
+
+def _eq(got: torch.Tensor, want) -> None:
+    np.testing.assert_array_equal(words_t2n(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,rb,q", SHAPES + EDGE_SHAPES + NONPOW2_SHAPES)
+def test_xor_fold_equals_reference(n, rb, q):
+    rs, ts, mask = _case(n, rb, q)
+    got = xor_fold(ts.packed, torch.from_numpy(mask))
+    _eq(got, ref_xor_fold(rs.packed, jnp.asarray(mask), interpret=True))
+    _eq(got, ref_oracles.xor_fold_ref(rs.packed, jnp.asarray(mask)))
+    _eq(ref.xor_fold_ref(ts.packed, torch.from_numpy(mask)), np.asarray(
+        ref_oracles.xor_fold_ref(rs.packed, jnp.asarray(mask))))
+
+
+@pytest.mark.parametrize("tdtype,jdtype", MASK_DTYPES)
+def test_xor_fold_mask_dtypes(tdtype, jdtype):
+    rs, ts, mask = _case(128, 16, 7)
+    got = xor_fold(ts.packed, torch.from_numpy(mask).to(tdtype))
+    _eq(got, ref_xor_fold(rs.packed, jnp.asarray(mask).astype(jdtype),
+                          interpret=True))
+
+
+@pytest.mark.parametrize("n,rb,q", SHAPES + NONPOW2_SHAPES)
+def test_parity_matmul_equals_reference(n, rb, q):
+    rs, ts, mask = _case(n, rb, q, seed=n + 1)
+    got = parity_matmul(torch.from_numpy(mask), ts.bitplanes())
+    assert got.dtype == torch.uint8
+    want = np.asarray(ref_parity_matmul(
+        jnp.asarray(mask), rs.bitplanes(), interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        ref_oracles.parity_matmul_ref(jnp.asarray(mask), rs.bitplanes())))
+    np.testing.assert_array_equal(
+        ref.parity_matmul_ref(torch.from_numpy(mask), ts.bitplanes()).numpy(),
+        want)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32,
+                                      torch.bfloat16, torch.int32])
+def test_parity_matmul_input_dtypes(in_dtype):
+    rs, ts, mask = _case(128, 16, 9)
+    got = parity_matmul(torch.from_numpy(mask).to(in_dtype),
+                        ts.bitplanes().to(in_dtype))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        ref_oracles.parity_matmul_ref(jnp.asarray(mask), rs.bitplanes())))
+
+
+@pytest.mark.parametrize("n,rb,q", SHAPES + NONPOW2_SHAPES)
+def test_gather_xor_equals_reference(n, rb, q):
+    rs, ts, mask = _case(n, rb, q, seed=n)
+    m = min(n, 192)
+    ridx = ref_indices_from_mask(jnp.asarray(mask), m)
+    tidx = indices_from_mask(torch.from_numpy(mask), m)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(ridx))
+    got = gather_xor(ts.packed, tidx)
+    _eq(got, ref_gather_xor(rs.packed, ridx, interpret=True))
+    _eq(got, ref_oracles.gather_xor_ref(rs.packed, ridx))
+    _eq(ref.gather_xor_ref(ts.packed, tidx),
+        ref_oracles.gather_xor_ref(rs.packed, ridx))
+
+
+@pytest.mark.parametrize("grid_order", ["qwm", "wqm"])
+@pytest.mark.parametrize("block_w", [8, 16, 64])
+def test_gather_xor_grid_order_and_block_sweep(grid_order, block_w):
+    rs, ts, mask = _case(211, 21, 6, seed=5)
+    ridx = ref_indices_from_mask(jnp.asarray(mask), 120)
+    tidx = indices_from_mask(torch.from_numpy(mask), 120)
+    got = gather_xor(ts.packed, tidx, block_w=block_w, grid_order=grid_order)
+    _eq(got, ref_gather_xor(rs.packed, ridx, block_w=block_w,
+                            grid_order=grid_order, interpret=True))
+
+
+@pytest.mark.parametrize("fn", [gather_xor, fused_gather_fold])
+def test_all_padding_rows_answer_zero(fn):
+    _, ts, _ = _case(64, 8, 2)
+    idx = torch.full((2, 16), -1, dtype=torch.int32)
+    assert int(fn(ts.packed, idx).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("fn,bad", [(gather_xor, "qw"), (fused_gather_fold, "qwm")])
+def test_grid_order_is_validated(fn, bad):
+    _, ts, _ = _case(16, 8, 2)
+    idx = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="grid_order"):
+        fn(ts.packed, idx, grid_order=bad)
+
+
+@pytest.mark.parametrize("q,n,m", [(6, 150, 150), (4, 90, 8), (3, 64, 1),
+                                   (5, 33, 40)])
+def test_indices_from_mask_round_trip_and_truncation_parity(q, n, m):
+    """Same ids, same order, and — when a row is heavier than m — the same
+    lowest column ids kept as the reference's stable sort keeps."""
+    mask = seeded_mask(q, n, seed=q + n)
+    m_eff = min(m, n)
+    got = indices_from_mask(torch.from_numpy(mask), m_eff).numpy()
+    want = np.asarray(ref_indices_from_mask(jnp.asarray(mask), m_eff))
+    np.testing.assert_array_equal(got, want)
+    for row in range(q):
+        live = got[row][got[row] >= 0].tolist()
+        assert live == np.nonzero(mask[row])[0][:m_eff].tolist()
+
+
+@pytest.mark.parametrize("n,rb,q", SHAPES + EDGE_SHAPES)
+def test_fused_equals_reference_and_unfused_pair(n, rb, q):
+    rs, ts, mask = _case(n, rb, q)
+    ridx = ref_indices_from_mask(jnp.asarray(mask), n)
+    tidx = indices_from_mask(torch.from_numpy(mask), n)
+    got = fused_gather_fold(ts.packed, tidx)
+    _eq(got, ref_fused_gather_fold(rs.packed, ridx, interpret=True))
+    _eq(got, ref_oracles.gather_xor_ref(rs.packed, ridx))
+    # the composition the fused form replaces, both halves
+    assert torch.equal(got, gather_xor(ts.packed, tidx))
+    assert torch.equal(got, xor_fold(ts.packed, torch.from_numpy(mask)))
+
+
+@pytest.mark.parametrize("grid_order", ["qw", "wq"])
+@pytest.mark.parametrize("block_w", [8, 32, 128])
+def test_fused_grid_order_and_block_sweep(grid_order, block_w):
+    rs, ts, mask = _case(211, 21, 6, seed=4)
+    ridx = ref_indices_from_mask(jnp.asarray(mask), 120)
+    tidx = indices_from_mask(torch.from_numpy(mask), 120)
+    got = fused_gather_fold(ts.packed, tidx, block_w=block_w,
+                            grid_order=grid_order)
+    _eq(got, ref_fused_gather_fold(rs.packed, ridx, block_w=block_w,
+                                   grid_order=grid_order, interpret=True))
+
+
+def test_fused_truncated_budget_matches_pair():
+    rs, ts, mask = _case(90, 10, 4, seed=9)
+    tidx = indices_from_mask(torch.from_numpy(mask), 8)
+    got = fused_gather_fold(ts.packed, tidx)
+    assert torch.equal(got, gather_xor(ts.packed, tidx))
+    ridx = ref_indices_from_mask(jnp.asarray(mask), 8)
+    _eq(got, ref_fused_gather_fold(rs.packed, ridx, interpret=True))
+
+
+GATE_CASES = [
+    # (n, W, block_w, budget)
+    (256, 16, 128, 8 << 20),
+    (4096, 512, 128, 8 << 20),
+    (65536, 128, 128, 8 << 20),
+    (10**6, 384, 128, 8 << 20),
+    (200_000, 12, 128, 8 << 20),
+    (300_000, 12, 128, 8 << 20),
+    (2048, 16, 128, FUSED_SMEM_FALLBACK_BYTES),
+    (7264, 384, 128, FUSED_SMEM_FALLBACK_BYTES),
+    (7265, 384, 128, FUSED_SMEM_FALLBACK_BYTES),
+    (10**6, 384, 128, FUSED_SMEM_FALLBACK_BYTES),
+    (500, 3, 128, FUSED_SMEM_FALLBACK_BYTES),
+    (1000, 40, 16, 1),
+]
+
+
+@pytest.mark.parametrize("n,w,block_w,budget", GATE_CASES)
+def test_fused_block_w_gate_equals_reference(n, w, block_w, budget):
+    got = fused_block_w(n, w, block_w=block_w, budget_bytes=budget)
+    assert got == ref_fused_block_w(n, w, block_w=block_w, budget_bytes=budget)
+    assert got == 0 or (n * got * 4 <= budget and got & (got - 1) == 0)
+
+
+def test_fused_gate_on_the_hopper_budget():
+    """The contract of the reference's gate test, on the shared-memory
+    budget of a Hopper block (what the CPU path falls back to)."""
+    assert fused_smem_budget(torch.device("cpu")) == 232_448
+    assert fused_smem_budget(None) == 232_448
+    assert fused_block_w(256, 16) == 16       # fits whole
+    assert fused_block_w(400, 512) == 128     # capped at the default block
+    assert 0 < fused_block_w(1000, 128) < 128  # shrinks to fit
+    assert fused_block_w(10**6, 384) == 0     # CT scale: fall back to pair
+    assert fused_block_w(7000, 12) == 8       # rounds W down to a pow2
+    assert fused_block_w(8000, 12) == 0       # 8-word slab does not fit
+
+
+@pytest.mark.parametrize("n,theta", [(10_000, 0.25), (16, 0.5), (10**6, 0.25),
+                                     (2048, 0.25), (7, 0.01), (512, 0.3)])
+def test_sparse_index_budget_equals_reference(n, theta):
+    assert ops.sparse_index_budget(n, theta) == ref_ops.sparse_index_budget(
+        n, theta)
+
+
+def test_sparse_index_budget_bounds():
+    m = ops.sparse_index_budget(10_000, 0.25)
+    assert 2500 < m < 3000 and m % 8 == 0
+    assert ops.sparse_index_budget(16, 0.5) == 16  # clamped at n
+
+
+def test_server_paths_agree_end_to_end():
+    """fold == parity == sparse on the same masks, and == the reference's
+    three paths."""
+    rs, ts, mask = _case(222, 36, 13)
+    tmask = torch.from_numpy(mask)
+    fold = ops.server_answer_fold(ts.packed, tmask)
+    par = ops.server_answer_parity(ts.bitplanes(), tmask)
+    sp = ops.server_answer_sparse(ts.packed, tmask, theta=0.4)
+    assert torch.equal(fold, par) and torch.equal(fold, sp)
+    _eq(fold, ref_ops.server_answer_fold(rs.packed, jnp.asarray(mask)))
+    _eq(par, ref_ops.server_answer_parity(rs.bitplanes(), jnp.asarray(mask)))
+    _eq(sp, ref_ops.server_answer_sparse(rs.packed, jnp.asarray(mask),
+                                         theta=0.4))
+
+
+@pytest.mark.parametrize("theta,planes", [(0.3, False), (None, False),
+                                          (None, True), (0.5, True)])
+def test_server_answer_auto_is_exact(theta, planes):
+    _, ts, mask = _case(200, 20, 6, seed=2)
+    tmask = torch.from_numpy(mask)
+    got = ops.server_answer_auto(
+        ts.packed, ts.bitplanes() if planes else None, tmask, theta)
+    assert torch.equal(got, ref.xor_fold_ref(ts.packed, tmask))
+
+
+def test_parity_crossover_is_a_measured_bucket_or_never():
+    q = ops.parity_crossover_batch(10**6, 12288)
+    assert q == ops.PARITY_NEVER_WINS or (q & (q - 1) == 0 and q >= 1)
+
+
+def test_wrappers_count_no_launch_on_the_cpu():
+    """A launch counter moves only where a kernel is launched."""
+    _, ts, mask = _case(32, 8, 2)
+    before = (xor_fold.launches, gather_xor.launches,
+              fused_gather_fold.launches, parity_matmul.launches)
+    tmask = torch.from_numpy(mask)
+    xor_fold(ts.packed, tmask)
+    idx = indices_from_mask(tmask, 32)
+    gather_xor(ts.packed, idx)
+    fused_gather_fold(ts.packed, idx)
+    parity_matmul(tmask, ts.bitplanes())
+    assert before == (xor_fold.launches, gather_xor.launches,
+                      fused_gather_fold.launches, parity_matmul.launches)
+
+
+def test_shape_mismatch_raises():
+    _, ts, mask = _case(32, 8, 2)
+    with pytest.raises(ValueError):
+        xor_fold(ts.packed, torch.from_numpy(mask)[:, :-1])
+    with pytest.raises(ValueError):
+        parity_matmul(torch.from_numpy(mask)[:, :-1], ts.bitplanes())
