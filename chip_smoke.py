@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — one private lookup through the serving
-pipeline — at the size of the paper's own workload (10^6 records of
-1536 bytes, d = 100 databases, Sparse-PIR at θ = 0.25 and Chor), builds the
-four CUDA kernels from the sources in this tree, holds each against its
-plain PyTorch version on the card (bit for bit: tolerance 0, PIR is exact),
-times them with CUDA events, and checks that the pipeline's answers equal
-the stored records and that its path went through the kernels (launch
-counters). One JSON line per phase; the last line is the verdict.
+Drives the port's paths through the serving pipeline at the size of the
+paper's own workload (10^6 records of 1536 bytes, d = 100 databases,
+Sparse-PIR at θ = 0.25 and Chor): one private lookup, serving a live store
+that takes update, delete and append deltas, and multi-index requests.
+Builds the six CUDA kernels from the sources in this tree, holds each
+against its plain PyTorch version on the card (bit for bit: tolerance 0,
+PIR is exact), times them with CUDA events, and checks that the
+pipeline's answers equal the stored (or pinned) records and that each
+path went through its kernels (launch counters, set to 0 before a path
+and read after it). One JSON line per phase; the last line is the
+verdict.
 
 Needs a CUDA device and ``nvcc``; exits non-zero without printing a verdict
 when there is no device. Imports only ``repro_torch``.
@@ -97,6 +100,172 @@ def check_kernel(name, shape, kernel_fn, plain_fn, bound, source, replaces,
     return row
 
 
+def serve_live(pir_ct, cfg, base, dev, rng, pir_delta_batch, Delta,
+               VersionedStore, scatter_rows, scatter_ms):
+    """A live CT store: a flush, a 1 % update burst (3 scatter launches),
+    reads of updated rows, a batch pinned across a further update, a
+    delete, an append and a checked compaction."""
+    n, rb, d = base.n, cfg.record_bytes, cfg.d
+    live = VersionedStore(base, shards=8)
+    pipe = pir_ct.make_serving_pipeline(cfg, store=live, device=dev, seed=5)
+    planner = pipe.backend.planner
+    torch.cuda.reset_peak_memory_stats()
+    flush_s, ingest_s = [], {}
+
+    def flush(picks):
+        for c, i in enumerate(picks):
+            if not pipe.submit(f"client-{c}", int(i)):
+                raise AssertionError("budget refused a query")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.flush()
+        torch.cuda.synchronize()
+        flush_s.append(time.perf_counter() - t)
+        head = live.snapshot()
+        for c, i in enumerate(picks):
+            if not np.array_equal(out[f"client-{c}"],
+                                  head.record_bytes(int(i))):
+                raise AssertionError(f"serve_live_ct: wrong record {int(i)}")
+        return out
+
+    def ingest(label, delta):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe.ingest(delta)
+        torch.cuda.synchronize()
+        ingest_s[label] = time.perf_counter() - t
+
+    # 1. plans exist
+    flush(rng.integers(0, n, size=8))
+    kept0 = planner.metrics["plans_kept"]
+    dropped0 = planner.metrics["plans_dropped"]
+    # 2. a 1 % update burst: three chunks of at most 4096 rows
+    (burst,) = pir_delta_batch(n, rb, updates=10_000, seed=2, step=0)
+    before = scatter_rows.launches
+    ingest("update_10000", burst)
+    burst_launches = scatter_rows.launches - before
+    if burst_launches != 3:
+        raise AssertionError(
+            f"the 10 000-row update launched scatter_rows {burst_launches} "
+            "times, expected 3")
+    if not (planner.metrics["plans_kept"] > kept0
+            and planner.metrics["plans_dropped"] == dropped0):
+        raise AssertionError(f"update did not keep the plans: "
+                             f"{planner.metrics}")
+    swap_after_update = dict(pipe.backend.last_swap)
+    # 3. updated rows read back their new bytes
+    updated = burst.indices[:4]
+    changed = sum(not np.array_equal(base.record_bytes(int(i)),
+                                     live.snapshot().record_bytes(int(i)))
+                  for i in updated)
+    if changed == 0:
+        raise AssertionError("the update burst changed none of its rows")
+    flush(np.concatenate([updated, rng.integers(0, n, size=4)]))
+    # 4. a batch planned before a further update answers its pinned bytes
+    j = int(rng.integers(0, n))
+    pinned_bytes = live.snapshot().record_bytes(j)
+    if not pipe.submit("pinned", j):
+        raise AssertionError("budget refused a query")
+    planned = pipe.plan_requests(pipe.take_batch())
+    fresh = rng.integers(0, 256, size=(1, rb), dtype=np.uint8)
+    ingest("update_pinned", Delta.update([j], fresh))
+    answer = dict((r.client, a) for r, a in pipe.execute_planned(planned))
+    if not np.array_equal(answer["pinned"], pinned_bytes):
+        raise AssertionError("a pinned batch did not answer its snapshot")
+    if np.array_equal(answer["pinned"], fresh[0]):
+        raise AssertionError("the pinned batch saw the later write")
+    # 5. tombstones
+    (tomb,) = pir_delta_batch(n, rb, deletes=100, seed=2, step=1)
+    ingest("delete_100", tomb)
+    out = flush(np.concatenate([tomb.indices[:2], rng.integers(0, n, size=6)]))
+    if out["client-0"].any() or out["client-1"].any():
+        raise AssertionError("a deleted record is not zero")
+    # 6. an append of --ingest-rows records; the price is re-read
+    (grow,) = pir_delta_batch(n, rb, appends=64, seed=2, step=2)
+    ingest("append_64", grow)
+    if live.n != n + 64 or pipe.store.n != n + 64:
+        raise AssertionError("the append did not grow the store")
+    if pipe.price != pipe.staged.privacy(n + 64):
+        raise AssertionError("the price was not re-read at the new n")
+    out = flush([n + 7] + list(rng.integers(0, n, size=7)))
+    if not np.array_equal(out["client-0"], grow.raw[7]):
+        raise AssertionError("appended record n + 7 is not served exactly")
+    # 7. compaction: the host replay must equal the head bit for bit
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    compacted = pipe.compact_step()
+    compact_s = time.perf_counter() - t
+    if compacted != 4 or live.log_depth != 0:
+        raise AssertionError(f"compaction folded {compacted} deltas")
+    emit({
+        "phase": "serve_live_ct", "scheme": cfg.scheme, "n": n,
+        "n_after": live.n, "record_bytes": rb, "d": d, "batch": 8,
+        "shards": live.shards, "version": live.version,
+        "flush_s": flush_s, "ingest_s": ingest_s,
+        "ingest_rows": {"update_10000": burst.count, "update_pinned": 1,
+                        "delete_100": tomb.count, "append_64": grow.count},
+        "scatter_rows_launches": scatter_rows.launches,
+        "scatter_rows_launches_update_10000": burst_launches,
+        "scatter_rows_ms": scatter_ms,
+        "compact_s": compact_s, "compacted_deltas": compacted,
+        "last_swap_update": swap_after_update,
+        "last_swap": pipe.backend.last_swap,
+        "planner": dict(planner.metrics), "store": dict(live.metrics),
+        "path_counts": dict(pipe.backend.path_counts),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    })
+    del pipe, live, planned
+    torch.cuda.empty_cache()
+
+
+def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
+                flushes=2):
+    """8 multi-index requests per batch, k from 1 to 4 (a relying party
+    fetching a certificate with its chain): one flat bucket of 8 x 4."""
+    pipe = pir_ct.make_serving_pipeline(cfg, store=store_, device=dev, seed=6)
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], []
+    for _ in range(flushes):
+        ks = rng.integers(1, 5, size=8)
+        ks[0] = 4  # the longest chain sets k_max = 4
+        asked = {f"client-{c}": rng.integers(0, store_.n, size=int(k))
+                 for c, k in enumerate(ks)}
+        for client, lst in asked.items():
+            if not pipe.submit_many(client, [int(i) for i in lst]):
+                raise AssertionError("budget refused a request")
+        before = kernel.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.flush()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launches.append(kernel.launches - before)
+        if launches[-1] != cfg.d:
+            raise AssertionError(f"{label}: {launches[-1]} launches in one "
+                                 f"batch, expected d={cfg.d}")
+        for client, lst in asked.items():
+            want = np.stack([store_.record_bytes(int(i)) for i in lst])
+            if out[client].shape != (len(lst), cfg.record_bytes) or \
+                    not np.array_equal(out[client], want):
+                raise AssertionError(f"{label}: wrong rows for {client}")
+    if pipe.backend.path_counts[family] != cfg.d * flushes:
+        raise AssertionError(f"{label}: {pipe.backend.path_counts}")
+    plan = next(iter(pipe.backend.planner._plans.values()))
+    emit({
+        "phase": label, "scheme": cfg.scheme, "n": store_.n,
+        "record_bytes": cfg.record_bytes, "d": cfg.d, "requests": 8,
+        "flat_bucket": plan.bucket, "flushes": flushes, "flush_s": times,
+        "kernel": kernel.__name__, "launches_per_batch": launches,
+        "exec_plan": plan.describe(), "blocks": dict(plan.blocks),
+        "path_counts": dict(pipe.backend.path_counts),
+        "metrics": {k: pipe.metrics[k] for k in ("queries", "batches",
+                                                 "padded")},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    })
+    del pipe
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -107,7 +276,8 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fused import (
         fused_block_w, fused_gather_fold, fused_gather_fold_plain,
-        fused_smem_budget,
+        fused_multi_gather_fold, fused_multi_gather_fold_plain,
+        fused_smem_budget, jagged_row_mask,
     )
     from repro_torch.kernels.gather_xor import (
         gather_xor, gather_xor_plain, indices_from_mask,
@@ -115,6 +285,7 @@ def main() -> int:
     from repro_torch.kernels.parity_matmul import (
         parity_matmul, parity_matmul_plain,
     )
+    from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
     from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
     from repro_torch.serve import ShardedBackend
 
@@ -124,7 +295,16 @@ def main() -> int:
         "xor_fold": xor_fold, "gather_xor": gather_xor,
         "fused_gather_fold": fused_gather_fold,
         "parity_matmul": parity_matmul,
+        "scatter_rows": scatter_rows,
+        "fused_multi_gather_fold": fused_multi_gather_fold,
     }
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: f_.launches for k, f_ in wrappers.items()}
 
     # ------------------------------------------------------------ 1 device
     smi = subprocess.run(
@@ -278,10 +458,129 @@ def main() -> int:
                    xor_fold(cut_db, pmask)) != 0:
         raise AssertionError("parity path != fold path")
     del a32, b32
+
+    # scatter_rows: the ingest chunk (4096 unique rows) into the CT store
+    m_up = 4096
+    up_rows = torch.from_numpy(
+        rng.choice(n, size=m_up, replace=False).astype(np.int32)).to(dev)
+    up_vals = torch.randint(-(2**31), 2**31 - 1, (m_up, w),
+                            dtype=torch.int32, device=dev)
+    up_rows_long = up_rows.long()
+    db_rows_before = store.packed[up_rows_long].clone()
+    rows.append(check_kernel(
+        "scatter_rows",
+        {"n": n, "W": w, "m": m_up, "unique": True, "dtype": "int32"},
+        lambda: scatter_rows(store.packed, up_rows, up_vals),
+        lambda: scatter_rows_plain(store.packed, up_rows, up_vals),
+        # functional: every row of out is written once and read once, from
+        # db (untouched rows) or from vals (written rows), plus the row ids
+        ((2 * n * w * 4 + m_up * 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
+        "scatter_rows.cu", "src/repro/kernels/scatter.py:100",
+        library_fn=lambda: store.packed.index_copy(0, up_rows_long, up_vals),
+    ))
+    # duplicate rows with different values: the last write wins, and the
+    # input is never written
+    dup = torch.tensor([7, 11, 7, 7, 11, n - 1, 7], dtype=torch.int32,
+                       device=dev)
+    dup_vals = torch.arange(dup.numel() * w, dtype=torch.int32,
+                            device=dev).reshape(-1, w)
+    got = scatter_rows(store.packed, dup, dup_vals)
+    last = {}
+    for i, r in enumerate(dup.tolist()):
+        last[r] = i
+    for r, i in last.items():
+        if not torch.equal(got[r], dup_vals[i]):
+            raise AssertionError(f"scatter_rows: row {r} is not its last write")
+    rows[-1]["duplicates_last_write"] = max_abs_err(
+        got, scatter_rows_plain(store.packed, dup, dup_vals))
+    if rows[-1]["duplicates_last_write"] != 0:
+        raise AssertionError("scatter_rows differs on duplicate rows")
+    if not torch.equal(store.packed[up_rows_long], db_rows_before):
+        raise AssertionError("scatter_rows wrote into its input")
+    del got, up_vals, db_rows_before
+    torch.cuda.empty_cache()
+
+    # fused_multi_gather_fold: timed at the operands its serving path gives
+    # it (8 requests of k_max = 4 rows, every row live: the multi layout
+    # pads with real dummy queries), at the reduced config's shape and at
+    # the widest slab the gate admits; a jagged case (a zero-count request,
+    # garbage in dead rows) is checked beside it at both shapes
+    def multi_case(fdb, fn_, counts, k_max):
+        fm = ops.sparse_index_budget(fn_, cfg.theta)
+        r_count = len(counts)
+        idx = indices_from_mask(
+            random_mask(rng, r_count * k_max, fn_, cfg.theta, dev), fm)
+        off = torch.from_numpy(
+            np.cumsum([0] + list(counts)).astype(np.int32)).to(dev)
+        live = jagged_row_mask(off, k_max, r_count * k_max)
+        # dead rows hold live-looking garbage the descriptor must silence
+        garbage = torch.randint(0, fn_, idx.shape, dtype=torch.int32,
+                                device=dev)
+        idx = torch.where(live[:, None], idx, garbage).contiguous()
+        named = idx[live]
+        distinct = int(torch.unique(named[named >= 0]).numel())
+        live_rows = int(live.sum())
+        bound = ((distinct * fdb.shape[1] * 4 + live_rows * fm * 4
+                  + (r_count + 1) * 4 + r_count * k_max * fdb.shape[1] * 4)
+                 / HBM_BYTES_PER_S * 1e3, "bytes")
+        return idx, off, live, fm, distinct, bound
+
+    k_max_m = 4
+    path_counts = (k_max_m,) * 8
+    jagged_counts = (3, 1, 0, 4, 2, 4, 1, 2)
+    multi_rows = []
+    for fn_, fw in fused_shapes:
+        fdb = store.packed[:fn_, :fw].contiguous()
+        fbw = fused_block_w(fn_, fw, device=dev)
+        for counts in (jagged_counts, path_counts):
+            idx, off, live, fm, distinct, bound = multi_case(
+                fdb, fn_, counts, k_max_m)
+            by_order = [
+                fused_multi_gather_fold(fdb, idx, off, k_max=k_max_m,
+                                        block_w=fbw, grid_order=go)
+                for go in ("rw", "wr")]
+            if max_abs_err(*by_order) != 0:
+                raise AssertionError("fused_multi rw and wr differ")
+            if max_abs_err(by_order[0], gather_xor(
+                    fdb, torch.where(live[:, None], idx, -1))) != 0:
+                raise AssertionError(
+                    "fused_multi != gather_xor of the masked rows")
+            if int(by_order[0][~live].abs().sum()) != 0:
+                raise AssertionError("fused_multi: a dead row is not zero")
+            err = max_abs_err(by_order[0], fused_multi_gather_fold_plain(
+                fdb, idx, off, k_max_m))
+            if err != 0:
+                raise AssertionError(f"fused_multi {counts} differs from "
+                                     f"the plain version ({err})")
+            if counts is jagged_counts:
+                jagged_err = err
+            del by_order
+        multi_rows.append(check_kernel(
+            "fused_multi_gather_fold",
+            {"n": fn_, "W": fw, "requests": len(path_counts),
+             "counts": "all live", "k_max": k_max_m, "m": fm,
+             "distinct_rows": distinct, "block_w": fbw, "grid_order": "rw",
+             "smem_budget": budget},
+            lambda: fused_multi_gather_fold(fdb, idx, off, k_max=k_max_m,
+                                            block_w=fbw),
+            lambda: fused_multi_gather_fold_plain(fdb, idx, off, k_max_m),
+            bound, "fused_multi_gather_fold.cu",
+            "src/repro/kernels/fused.py:302", iters=50, plain_iters=5,
+        ))
+        multi_rows[-1]["jagged"] = {"counts": list(jagged_counts),
+                                    "dead_rows": "garbage",
+                                    "max_abs_err": jagged_err}
+    multi_rows[0]["at_gate"] = {
+        k: multi_rows[1][k]
+        for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                  "bound_by")}
+    rows.append(multi_rows[0])
+
     emit({"phase": "kernels", "checked": [
         {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
                            "library_ms", "max_abs_err", "at_gate",
-                           "at_full_width")
+                           "at_full_width", "duplicates_last_write",
+                           "jagged")
          if k in r} for r in rows]})
 
     # fold vs parity(+pack_bits) across scheduler buckets, n cut, full width
@@ -305,8 +604,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------- 4-6 the main path
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts()
     deferred = []
 
     def serve(label, cfg_, store_, flushes, batch, expect_kernel,
@@ -403,12 +701,41 @@ def main() -> int:
 
     # the main path ends here: read the wrappers' counts before any launch
     # made only to measure
-    counts = {k: f_.launches for k, f_ in wrappers.items()}
-    for name, count in counts.items():
-        if count <= 0:
+    by_path = {"lookup": read_counts()}
+    for name in ("xor_fold", "gather_xor", "fused_gather_fold",
+                 "parity_matmul"):
+        if by_path["lookup"][name] <= 0:
             raise AssertionError(f"main path never launched {name}")
+
+    # ------------------------------------------------ 7 serving a live store
+    from repro_torch.data.pipeline import pir_delta_batch
+    from repro_torch.db import Delta, VersionedStore
+
+    reset_counts()
+    scatter_ms = next(r["ms"] for r in rows if r["name"] == "scatter_rows")
+    serve_live(pir_ct, online, store, dev, rng, pir_delta_batch, Delta,
+               VersionedStore, scatter_rows, scatter_ms)
+    by_path["serve_live_ct"] = read_counts()
+
+    # ---------------------------------------------- 8 multi-index requests
+    reset_counts()
+    serve_multi("serve_multi_ct", pir_ct, dataclasses.replace(
+        online, query_batch=32), store, dev, rng, gather_xor, "sparse")
+    by_path["serve_multi_ct"] = read_counts()
+    reset_counts()
+    serve_multi("serve_multi_reduced", pir_ct, dataclasses.replace(
+        red, query_batch=32), small, dev, rng, fused_multi_gather_fold,
+        "sparse")
+    by_path["serve_multi_reduced"] = read_counts()
+
+    # each kernel's count comes from the first path that runs it; every
+    # path's own counts ride along
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        path = next((p for p, c in by_path.items() if c[r["name"]] > 0), None)
+        if path is None:
+            raise AssertionError(f"no path launched {r['name']}")
+        r["launches"] = by_path[path][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
 
     # the d per-server answers of a planned batch enqueued back to back
     # with ONE synchronisation (against answer_batch's d), and the

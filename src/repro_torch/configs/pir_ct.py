@@ -67,7 +67,9 @@ def make_serving_pipeline(
     cfg: PIRConfig = CONFIG, store=None, *, device: DeviceLike = None, **kw
 ):
     """PIRConfig -> repro_torch.serve.ServingPipeline (synthetic store on
-    ``device`` unless one is passed). ``device=None`` is the CUDA card.
+    ``device`` unless one is passed; a live
+    :class:`~repro_torch.db.live.VersionedStore` is served through its
+    current head). ``device=None`` is the CUDA card.
     ``kw`` forwards to the pipeline (budgets, backend, seed).
     ``cfg.backend`` / ``cfg.fused_vmem_budget_bytes`` configure the
     execution-backend layer unless a ready ``backend=`` instance is
@@ -82,6 +84,7 @@ def make_serving_pipeline(
         store = make_synthetic_store(
             cfg.n_records, cfg.record_bytes, seed=0, device=dev
         )
+    frozen = store.snapshot() if hasattr(store, "snapshot") else store
     scheme = scheme_from_config(cfg)
     if cfg.cache_entries > 0 and "cache" not in kw:
         log.info(
@@ -90,7 +93,7 @@ def make_serving_pipeline(
         )
     if "backend" not in kw:
         kw["backend"] = ShardedBackend(
-            store,
+            frozen,
             simulate_latency=kw.pop("simulate_latency", None),
             backend=cfg.backend,
             smem_budget_bytes=cfg.fused_vmem_budget_bytes or None,

@@ -1,7 +1,8 @@
 """State carried across packages: stores and wire payloads as numpy.
 
 Data takes the place of weights in this system. These functions take and
-return **numpy arrays only**, so this package never imports the reference
+return **numpy arrays only** (single-index and jagged multi-index wire
+batches alike), so this package never imports the reference
 package: a caller that holds the reference's store or ``Queries`` moves
 them through numpy, and both packages then compute on the same bits.
 """
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.core.protocol import Queries
+from repro_torch.core.protocol import MultiQueries, Queries
 from repro_torch.db import packing
 from repro_torch.db.store import RecordStore
 
@@ -23,6 +24,8 @@ __all__ = [
     "store_to_numpy",
     "queries_from_numpy",
     "queries_to_numpy",
+    "multi_queries_from_numpy",
+    "multi_queries_to_numpy",
 ]
 
 
@@ -63,6 +66,7 @@ def queries_from_numpy(
     q_idx: np.ndarray,
     theta: Optional[float] = None,
     device: DeviceLike = None,
+    store_version: Optional[int] = None,
 ) -> Queries:
     """A wire payload ([d, B, n] {0,1} masks) -> :class:`Queries` on
     ``device``."""
@@ -80,6 +84,7 @@ def queries_from_numpy(
         servers=tuple(int(s) for s in servers),
         q_idx=torch.from_numpy(_owned(q_idx, np.int32)).to(dev),
         theta=None if theta is None else float(theta),
+        store_version=None if store_version is None else int(store_version),
     )
 
 
@@ -92,4 +97,49 @@ def queries_to_numpy(q: Queries) -> dict:
         "servers": tuple(q.servers),
         "q_idx": q.q_idx.detach().cpu().numpy(),
         "theta": q.theta,
+        "store_version": q.store_version,
+    }
+
+
+def multi_queries_from_numpy(
+    kind: str,
+    payload: np.ndarray,
+    servers: Sequence[int],
+    q_idx: np.ndarray,
+    offsets: np.ndarray,
+    k_max: int,
+    requests: int,
+    theta: Optional[float] = None,
+    device: DeviceLike = None,
+    store_version: Optional[int] = None,
+) -> MultiQueries:
+    """A jagged multi-index wire batch (the flat payload, its flat
+    ``q_idx`` and the jagged descriptor) -> :class:`MultiQueries` on
+    ``device``."""
+    flat = queries_from_numpy(
+        kind, payload, servers, q_idx, theta, device=device,
+        store_version=store_version,
+    )
+    offsets = np.asarray(offsets, dtype=np.int32)
+    if offsets.ndim != 1 or offsets.shape[0] != int(requests) + 1:
+        raise ValueError("offsets must be [requests + 1]")
+    if flat.payload.shape[1] % int(k_max):
+        raise ValueError(
+            f"flat bucket {flat.payload.shape[1]} not a multiple of "
+            f"k_max={k_max}"
+        )
+    return MultiQueries(
+        queries=flat, offsets=offsets.copy(), k_max=int(k_max),
+        requests=int(requests),
+    )
+
+
+def multi_queries_to_numpy(mq: MultiQueries) -> dict:
+    """:class:`MultiQueries` -> plain numpy/python fields (the inverse of
+    :func:`multi_queries_from_numpy`'s arguments)."""
+    return {
+        **queries_to_numpy(mq.queries),
+        "offsets": np.asarray(mq.offsets, dtype=np.int32),
+        "k_max": int(mq.k_max),
+        "requests": int(mq.requests),
     }

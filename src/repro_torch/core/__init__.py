@@ -11,6 +11,7 @@ from repro_torch.core.accounting import PrivacyBudget, epsilon_sparse
 from repro_torch.core.protocol import (
     Answers,
     ChorScheme,
+    MultiQueries,
     Queries,
     SchemeProtocol,
     SparseScheme,
@@ -20,12 +21,14 @@ from repro_torch.core.protocol import (
     registered_schemes,
     scheme_param_names,
     staged_retrieve,
+    staged_retrieve_many,
 )
 from repro_torch.core.schemes import SCHEMES, Scheme, make_scheme
 
 __all__ = [
     "Answers",
     "ChorScheme",
+    "MultiQueries",
     "PrivacyBudget",
     "Queries",
     "SCHEMES",
@@ -42,4 +45,5 @@ __all__ = [
     "registered_schemes",
     "scheme_param_names",
     "staged_retrieve",
+    "staged_retrieve_many",
 ]

@@ -20,9 +20,13 @@ randomness is drawn from.
 
 Each ported scheme is a frozen dataclass registered under its config name
 via :func:`register_scheme` (``chor``, ``sparse``). The direct family,
-Subset-PIR, the ``as-*`` anonymity combinator and the multi-index wire
-format of the reference package are not ported yet (ROADMAP.md Queue A):
-asking for them raises ``NotImplementedError``.
+Subset-PIR and the ``as-*`` anonymity combinator of the reference package
+are not ported yet (ROADMAP.md Queue A): asking for them raises
+``NotImplementedError``.
+
+Jagged multi-index batches (:class:`MultiQueries`, ``multi_*``) flatten
+per-request index lists onto the single-index wire, so every scheme's
+stages serve them unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import (
     Any,
     Callable,
     Dict,
+    List,
     Optional,
     Protocol,
     Sequence,
@@ -39,13 +44,16 @@ from typing import (
     runtime_checkable,
 )
 
+import numpy as np
 import torch
 
+from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import accounting, chor, sparse
 from repro_torch.db.store import RecordStore
 
 __all__ = [
     "Queries",
+    "MultiQueries",
     "Answers",
     "Plan",
     "SchemeProtocol",
@@ -56,6 +64,13 @@ __all__ = [
     "build_scheme",
     "as_protocol",
     "staged_retrieve",
+    "jagged_offsets",
+    "multi_bucket",
+    "multi_pad",
+    "multi_query",
+    "multi_reconstruct",
+    "multi_privacy",
+    "staged_retrieve_many",
     "ChorScheme",
     "SparseScheme",
     "NOT_PORTED_SCHEMES",
@@ -83,6 +98,12 @@ class Queries:
     ``theta`` is set for the sparse family so the execution backend can
     pick the gather path. ``q_idx`` never crosses the wire — it stays on
     the client for :meth:`SchemeProtocol.reconstruct`.
+
+    ``store_version`` stamps which snapshot of a live
+    :class:`~repro_torch.db.live.VersionedStore` the batch was planned
+    against — None when serving a frozen store. Bookkeeping, not a wire
+    secret: versions say *when* the database changed, never what was
+    asked.
     """
 
     kind: str
@@ -90,6 +111,62 @@ class Queries:
     servers: Tuple[int, ...]
     q_idx: torch.Tensor
     theta: Optional[float] = None
+    store_version: Optional[int] = None
+
+
+@dataclasses.dataclass
+class MultiQueries:
+    """A jagged multi-index batch flattened onto the single-index wire.
+
+    Request r's i-th index occupies flat column ``r·k_max + i`` of
+    ``queries`` (each request padded to ``k_max`` columns, the request
+    axis padded to a pow2 count, so the flat bucket ``B = R_pad·k_max`` is
+    itself a pow2). Padding columns carry *real* queries for index 0 — on
+    the wire they are indistinguishable from live columns — and their
+    answers are dropped at reconstruction.
+
+    ``offsets`` is the jagged descriptor (``offsets[r+1] − offsets[r]`` =
+    request r's true index count); like ``q_idx`` it is client-side
+    reconstruction state. Privacy is priced by the Composition Lemma as
+    ``offsets[-1]`` sequential lookups (:func:`multi_privacy`). Delegating
+    properties make a ``MultiQueries`` quack like its flat ``queries``, so
+    every scheme's ``answer``/``reconstruct`` stage accepts it unchanged.
+    """
+
+    queries: Queries
+    offsets: np.ndarray
+    k_max: int
+    requests: int
+
+    # ------------------------------------------------ flat-wire delegation
+    @property
+    def kind(self) -> str:
+        return self.queries.kind
+
+    @property
+    def payload(self) -> torch.Tensor:
+        return self.queries.payload
+
+    @property
+    def servers(self) -> Tuple[int, ...]:
+        return self.queries.servers
+
+    @property
+    def q_idx(self) -> torch.Tensor:
+        return self.queries.q_idx
+
+    @property
+    def theta(self) -> Optional[float]:
+        return self.queries.theta
+
+    @property
+    def store_version(self) -> Optional[int]:
+        return self.queries.store_version
+
+    @property
+    def total(self) -> int:
+        """True (unpadded) number of flattened indices."""
+        return int(self.offsets[-1])
 
 
 @dataclasses.dataclass
@@ -248,6 +325,124 @@ def staged_retrieve(
     queries = scheme.query(plan, q_idx)
     answers = scheme.answer(store, queries)
     return scheme.reconstruct(answers)
+
+
+# --------------------------------------------------------------------------
+# Jagged multi-index batches
+# --------------------------------------------------------------------------
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length() if x > 1 else 1
+
+
+def jagged_offsets(index_lists: Sequence[Sequence[int]]) -> np.ndarray:
+    """[R+1] int32 prefix sums of the per-request index counts — the
+    jagged descriptor every multi-index stage shares. Empty rows are
+    legal."""
+    counts = [len(ix) for ix in index_lists]
+    return np.cumsum([0] + counts, dtype=np.int32)
+
+
+def multi_bucket(index_lists: Sequence[Sequence[int]]) -> int:
+    """Flat wire bucket for a jagged batch: requests padded to a pow2
+    count, each to ``k_max`` (pow2) columns — ``B = R_pad·k_max`` is the
+    batch size ``precompute`` must be built for."""
+    r_pad = _next_pow2(max(1, len(index_lists)))
+    k_max = _next_pow2(max([1] + [len(ix) for ix in index_lists]))
+    return r_pad * k_max
+
+
+def multi_pad(
+    index_lists: Sequence[Sequence[int]], *, device: DeviceLike = None,
+) -> Tuple[torch.Tensor, np.ndarray, int, int]:
+    """Flatten a jagged batch onto the padded flat layout.
+
+    Returns ``(q_idx, offsets, k_max, requests)``: ``q_idx`` is the [B]
+    int32 flat index vector on ``device`` (``None``: the CUDA card) with
+    request r's i-th index at ``r·k_max + i`` and index 0 in every padding
+    slot; ``offsets`` the [R+1] jagged descriptor; ``requests`` the true
+    request count.
+    """
+    offsets = jagged_offsets(index_lists)
+    r_pad = _next_pow2(max(1, len(index_lists)))
+    k_max = _next_pow2(max([1] + [len(ix) for ix in index_lists]))
+    flat = np.zeros(r_pad * k_max, dtype=np.int32)
+    for r, ix in enumerate(index_lists):
+        flat[r * k_max : r * k_max + len(ix)] = np.asarray(ix, dtype=np.int32)
+    q_idx = torch.from_numpy(flat).to(resolve_device(device))
+    return q_idx, offsets, k_max, len(index_lists)
+
+
+def multi_query(
+    scheme: "SchemeProtocol",
+    plan: Plan,
+    index_lists: Sequence[Sequence[int]],
+    *,
+    pick_servers: Optional[Callable[[int], Sequence[int]]] = None,
+    device: DeviceLike = None,
+) -> MultiQueries:
+    """Multi-index query stage: flatten+pad the jagged batch and drive the
+    scheme's single-index ``query`` at the flat bucket. The plan must have
+    been precomputed for :func:`multi_bucket` of the same batch;
+    ``device`` is where the flat index vector goes (``None``: the card)."""
+    q_idx, offsets, k_max, requests = multi_pad(index_lists, device=device)
+    bucket = int(q_idx.shape[0])
+    if plan.batch != bucket:
+        raise ValueError(
+            f"plan batch {plan.batch} != flat multi bucket {bucket} "
+            f"(precompute with multi_bucket(index_lists))"
+        )
+    queries = scheme.query(plan, q_idx, pick_servers=pick_servers)
+    return MultiQueries(
+        queries=queries, offsets=offsets, k_max=k_max, requests=requests
+    )
+
+
+def multi_reconstruct(
+    scheme: "SchemeProtocol", answers: Answers
+) -> List[torch.Tensor]:
+    """Multi-index reconstruct stage: run the scheme's flat
+    ``reconstruct`` and split the [B, W] rows back into per-request
+    [k_r, W] tensors in request order, dropping padding rows."""
+    mq = answers.queries
+    if not isinstance(mq, MultiQueries):
+        raise TypeError(
+            f"expected MultiQueries answers, got {type(mq).__name__}"
+        )
+    rows = scheme.reconstruct(answers)
+    counts = np.diff(mq.offsets)
+    return [
+        rows[r * mq.k_max : r * mq.k_max + int(counts[r])]
+        for r in range(mq.requests)
+    ]
+
+
+def multi_privacy(
+    scheme: "SchemeProtocol", n: int, k: int
+) -> Tuple[float, float]:
+    """Composition Lemma pricing for a k-index lookup: k sequential
+    single-index lookups spend exactly (k·ε, k·δ). Padding columns are
+    free — their answers are dropped."""
+    if k < 0:
+        raise ValueError(f"need k >= 0 lookups, got {k}")
+    eps, delta = scheme.privacy(n)
+    return k * eps, k * delta
+
+
+def staged_retrieve_many(
+    scheme: "SchemeProtocol",
+    gen: torch.Generator,
+    store: RecordStore,
+    index_lists: Sequence[Sequence[int]],
+) -> List[torch.Tensor]:
+    """Reference multi-index end-to-end path: one precompute at the flat
+    bucket, one wire round trip, per-request [k_r, W] rows out — the same
+    records a per-index loop of :func:`staged_retrieve` returns."""
+    if not len(index_lists):
+        return []
+    plan = scheme.precompute(gen, store.n, multi_bucket(index_lists))
+    mq = multi_query(scheme, plan, index_lists, device=store.device)
+    answers = scheme.answer(store, mq)
+    return multi_reconstruct(scheme, answers)
 
 
 # --------------------------------------------------------------------------

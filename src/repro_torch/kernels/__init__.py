@@ -1,9 +1,11 @@
 """CUDA kernels for the PIR server hot paths (the compute the paper
 optimizes): xor_fold (dense masked fold), parity_matmul (the fold as an
 integer product mod 2), gather_xor (Sparse-PIR: only the θ·n selected
-rows) and fused_gather_fold (the same with the db slab in shared memory).
-Each module holds the wrapper that launches the CUDA kernel and the plain
-PyTorch version beside it; ops.py holds the standalone server paths,
+rows), fused_gather_fold (the same with the db slab in shared memory) and
+its jagged multi-index form fused_multi_gather_fold, plus scatter_rows,
+the write kernel of live-store ingest. Each module holds the wrapper that
+launches the CUDA kernel and the plain PyTorch version beside it; ops.py
+holds the standalone server paths,
 ref.py the plain versions under the reference's oracle names, and
 backend.py the execution-backend layer every consumer outside this
 package goes through."""
@@ -15,11 +17,14 @@ from repro_torch.kernels.backend import (
     get_backend,
     register_backend,
     registered_backends,
+    scatter_update,
 )
 from repro_torch.kernels.fused import (
     fused_block_w,
     fused_gather_fold,
+    fused_multi_gather_fold,
     fused_smem_budget,
+    jagged_row_mask,
 )
 from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
 from repro_torch.kernels.parity_matmul import parity_matmul
@@ -33,8 +38,10 @@ __all__ = [
     "fused_smem_budget",
     "get_backend",
     "indices_from_mask",
+    "jagged_row_mask",
     "ops",
     "ref",
     "register_backend",
     "registered_backends",
+    "scatter_update",
 ]

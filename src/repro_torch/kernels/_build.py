@@ -33,9 +33,11 @@ SOURCES = (
     "xor_fold.cu",
     "gather_xor.cu",
     "fused_gather_fold.cu",
+    "fused_multi_gather_fold.cu",
     "parity_matmul.cu",
+    "scatter_rows.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "fused_slab.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +50,11 @@ _SIGNATURES = {
     "pir_xor_fold": (_P, _P, _P, _I, _I, _I, _P),
     "pir_gather_xor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pir_fused_gather_fold": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pir_fused_multi_gather_fold": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     "pir_parity_matmul": (_P, _P, _P, _I, _I, _I, _P),
+    "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -20,10 +20,17 @@ which this module follows).
 
 ``plan()`` **never measures**: a cell is answered from the analytic prior
 (``SchemeProtocol.costs(n)`` → the C_p crossover; the shared-memory gate
-for the fused sparse form; the measured fold/parity crossover of
+for the fused sparse forms; the measured fold/parity crossover of
 :func:`repro_torch.kernels.ops.parity_crossover_batch`). The measured
 autotune table of the reference package is not ported yet; every cell is
-a cold cell here.
+a cold cell here. A jagged multi-index bucket (``k_max``) priors to the
+fused multi form when the slab fits, to the streaming pair when not.
+
+The planner follows a live store: :meth:`KernelPlanner.rebind` keeps
+every cached plan on a same-shape swap (executors read their operand per
+call) and drops them when the shape changed. The write path is
+:func:`scatter_update`, the delta-ingest primitive of
+:mod:`repro_torch.db.live`.
 
 The serve layer's ``parity_min_batch`` knob survives as a *forced*
 decision (``ExecutionPlan.source == "forced"``).
@@ -34,14 +41,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.db import packing
 from repro_torch.db.store import RecordStore
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.fused import fused_block_w, fused_gather_fold
+from repro_torch.kernels.fused import (
+    fused_block_w,
+    fused_gather_fold,
+    fused_multi_gather_fold,
+)
 from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
 from repro_torch.kernels.parity_matmul import parity_matmul
+from repro_torch.kernels.scatter import scatter_rows
 from repro_torch.kernels.xor_fold import xor_fold
 
 __all__ = [
@@ -51,6 +64,7 @@ __all__ = [
     "get_backend",
     "registered_backends",
     "KernelPlanner",
+    "scatter_update",
 ]
 
 Kernel = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -64,9 +78,11 @@ class ExecutionPlan:
     """One batch's resolved execution decision.
 
     ``path`` is the physical kernel form (``fold`` / ``parity`` /
-    ``sparse_fused`` / ``sparse_pair`` / ``sparse_ref``), ``impl`` the impl
+    ``sparse_fused`` / ``sparse_multi_fused`` / ``sparse_pair`` /
+    ``sparse_ref``), ``impl`` the impl
     the executor is built from (never "auto"). ``blocks`` carries the
-    chosen kernel block shape (``block_w``, ``grid_order``), ``m_budget``
+    chosen kernel block shape (``block_w``, ``grid_order``, and ``k_max``
+    for the multi form), ``m_budget``
     the sparse index budget (None off the sparse family), and ``source``
     where the decision came from: ``model`` (analytic prior), ``forced``
     (caller override) or ``only`` (single candidate). ``run`` is the
@@ -211,9 +227,16 @@ class KernelPlanner:
         self._smem_budget = smem_budget_bytes
         self._planes: Optional[torch.Tensor] = None
         self._plans: Dict[Tuple, ExecutionPlan] = {}
+        #: the incremental-invalidation contract: how many cached plans a
+        #: store swap kept vs dropped, and how much precompute (bitplane)
+        #: work re-ran
         self.metrics: Dict[str, int] = {
+            "rebinds": 0,
             "plans_built": 0,
+            "plans_kept": 0,
+            "plans_dropped": 0,
             "precompute_full_builds": 0,
+            "precompute_rows_refreshed": 0,
         }
 
     # ------------------------------------------------------------- helpers
@@ -250,10 +273,12 @@ class KernelPlanner:
         return lambda payload: kernel(self._operand(path), payload)
 
     def _prior(
-        self, bucket: int, impl: str, sparse: bool
+        self, bucket: int, impl: str, sparse: bool,
+        k_max: Optional[int] = None,
     ) -> Tuple[str, str, Dict[str, Any]]:
         """The analytic prior: (path, impl, blocks) for a cell of the
-        dense-mask family (``sparse`` false) or the sparse family."""
+        dense-mask family (``sparse`` false) or the sparse family
+        (``k_max`` set for a jagged multi-index bucket)."""
         if not sparse:
             qstar = self._model_crossover()
             path = "parity" if bucket >= qstar else "fold"
@@ -263,7 +288,13 @@ class KernelPlanner:
         bw = self._fused_bw(self.store.n)
         if bw:
             # C_p says the work is m·BW either way; residency is the
-            # model's tiebreak — fit shared memory, walk queries outer
+            # model's tiebreak — fit shared memory, walk queries outer. A
+            # jagged bucket stages the slab once per request for its
+            # whole index list, so the multi form is its prior
+            if k_max:
+                return "sparse_multi_fused", impl, {
+                    "block_w": bw, "grid_order": "rw", "k_max": k_max,
+                }
             return "sparse_fused", impl, {"block_w": bw, "grid_order": "qw"}
         return "sparse_pair", impl, {}
 
@@ -274,6 +305,7 @@ class KernelPlanner:
         bucket: int,
         *,
         scheme: Any = None,
+        k_max: Optional[int] = None,
     ) -> ExecutionPlan:
         """One batch's wire plan -> its execution decision.
 
@@ -281,7 +313,10 @@ class KernelPlanner:
         :class:`~repro_torch.core.protocol.Queries`; ``bucket`` the padded
         batch size. ``scheme`` (a staged SchemeProtocol) names the cell
         and supplies ``costs(n)`` as the analytic prior; without it the
-        plan keys on the wire kind alone. Plans are cached per cell.
+        plan keys on the wire kind alone. ``k_max`` marks a jagged
+        multi-index bucket (the padded per-request column count,
+        ``bucket % k_max == 0``): a sparse cell then priors to the fused
+        multi form. Plans are cached per cell, ``k_max`` included.
         """
         kind = scheme_plan.kind
         if kind != "mask":
@@ -293,8 +328,12 @@ class KernelPlanner:
         scheme_name = getattr(scheme, "name", None) or f"kind:{kind}"
         costs = scheme.costs(self.store.n) if scheme is not None else None
         impl = self.backend.resolve(self.store.device)
+        if k_max is not None and (k_max < 1 or bucket % k_max):
+            raise ValueError(
+                f"multi bucket {bucket} not a multiple of k_max={k_max}"
+            )
 
-        cache_key = (scheme_name, kind, theta, int(bucket), impl)
+        cache_key = (scheme_name, kind, theta, int(bucket), impl, k_max)
         cached = self._plans.get(cache_key)
         if cached is not None:
             return cached
@@ -312,7 +351,11 @@ class KernelPlanner:
             path = "parity" if bucket >= self._parity_min_batch else "fold"
             chosen_impl, source = impl, "forced"
         else:
-            path, chosen_impl, blocks = self._prior(int(bucket), impl, sparse)
+            # the dense forms answer the whole flat bucket in one launch:
+            # only the sparse gather forms have a multi variant
+            path, chosen_impl, blocks = self._prior(
+                int(bucket), impl, sparse, k_max if sparse else None
+            )
             source = "only" if sparse and impl == "ref" else "model"
 
         kernel = _path_answer_fn(path, chosen_impl, m_budget, blocks)
@@ -354,6 +397,65 @@ class KernelPlanner:
         budget = ops.sparse_index_budget(n, min(max(touched / n, 1e-9), 0.5))
         return budget < self.GATHER_DENSE_CUTOFF * n
 
+    # ------------------------------------------------------------ swaps
+    def invalidate(self) -> None:
+        """Drop every cached plan."""
+        self.metrics["plans_dropped"] += len(self._plans)
+        self._plans.clear()
+
+    def rebind(
+        self,
+        store: RecordStore,
+        *,
+        touched_rows: Optional[Any] = None,
+    ) -> Dict[str, int]:
+        """Swap the planner onto a new store version.
+
+        A same-shape swap with a known touched-row set keeps every cached
+        :class:`ExecutionPlan` (executors read their operand from
+        ``self.store`` per call, so the new buffer flows in with zero
+        replans) and refreshes only the touched rows of the bitplanes, if
+        they were built. The refresh is functional — a new planes tensor,
+        never a write into the old one, which a batch pinned to the old
+        snapshot may still read. A shape change (an append) or an unknown
+        touch set drops plans and planes. Returns the per-call counter
+        deltas (also accumulated in :attr:`metrics`)."""
+        self.metrics["rebinds"] += 1
+        same_shape = (
+            store.n == self.store.n
+            and store.words == self.store.words
+            and store.record_bits == self.store.record_bits
+        )
+        if same_shape and touched_rows is not None:
+            self.store = store
+            rows = torch.as_tensor(
+                np.asarray(touched_rows, np.int64), device=store.device
+            )
+            refreshed = 0
+            if self._planes is not None and rows.numel():
+                fresh = packing.bitplanes_from_packed(
+                    store.packed.index_select(0, rows),
+                    dtype=self._planes.dtype,
+                )
+                self._planes = self._planes.index_copy(0, rows, fresh)
+                refreshed = int(rows.numel())
+            kept = len(self._plans)
+            self.metrics["plans_kept"] += kept
+            self.metrics["precompute_rows_refreshed"] += refreshed
+            return {
+                "plans_kept": kept, "plans_dropped": 0,
+                "precompute_rows_refreshed": refreshed,
+            }
+        self.store = store
+        self._planes = None
+        dropped = len(self._plans)
+        self._plans.clear()
+        self.metrics["plans_dropped"] += dropped
+        return {
+            "plans_kept": 0, "plans_dropped": dropped,
+            "precompute_rows_refreshed": 0,
+        }
+
 
 def _path_answer_fn(
     path: str, impl: str, m_budget: Optional[int], blocks: Dict[str, Any],
@@ -362,7 +464,8 @@ def _path_answer_fn(
     ``operand`` is the packed db ([n, W] words) — or the bitplanes for the
     parity path. The ``ref`` impl routes to the plain versions on either
     device; the ``cuda`` impl to the kernel wrappers. ``blocks`` carries
-    the block shape (``block_w``, ``grid_order``) for the sparse forms."""
+    the block shape (``block_w``, ``grid_order``, ``k_max``) for the
+    sparse forms."""
     if path == "fold":
         if impl == "ref":
             return ref.xor_fold_ref
@@ -389,4 +492,59 @@ def _path_answer_fn(
         return lambda db, m: fused_gather_fold(
             db, indices_from_mask(m, m_budget), block_w=bw, grid_order=go,
         )
+    if path == "sparse_multi_fused":
+        bw = blocks["block_w"]
+        go = blocks.get("grid_order", "rw")
+        k_max = int(blocks["k_max"])
+
+        def _multi(db: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+            idx = indices_from_mask(m, m_budget)
+            # the serving layout keeps every flat column live (padding
+            # columns are real dummy queries whose answers the client
+            # drops), so the all-live offsets make this bit-identical to
+            # the flat forms on the same payload
+            off = torch.arange(
+                idx.shape[0] // k_max + 1, dtype=torch.int32,
+                device=idx.device,
+            ) * k_max
+            return fused_multi_gather_fold(
+                db, idx, off, k_max=k_max, block_w=bw, grid_order=go,
+            )
+
+        return _multi
     raise ValueError(f"no kernel form for path {path!r}")
+
+
+# --------------------------------------------------------------------------
+# The write path: batched delta application (repro_torch.db.live's ingest)
+# --------------------------------------------------------------------------
+def scatter_update(
+    db: torch.Tensor,
+    rows: Any,
+    vals: torch.Tensor,
+    *,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Apply a batch of packed-row updates on the store's device: the
+    delta-ingest write primitive behind
+    :meth:`repro_torch.db.live.VersionedStore.ingest`.
+
+    db: [n, W]; rows: [m] int (tensor or array); vals: [m, W] (cast to
+    ``db.dtype``) -> a new [n, W] buffer with ``out[rows[i]] = vals[i]``,
+    last write winning on a duplicate row; ``db`` itself when ``m == 0``.
+
+    The backend resolves by the store's device, as :meth:`KernelPlanner.plan`
+    does: ``ref`` runs the plain version; ``cuda`` and ``auto`` launch the
+    scatter kernel for a store on the card (and take the plain version for
+    a store on the CPU). The reference's race of the kernel against its
+    oracle through the autotune table is not ported; neither is its
+    padding of the update count to a power of two, which only bounded jit
+    retraces there."""
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.as_tensor(np.asarray(rows, np.int64))
+    rows = rows.to(device=db.device, dtype=torch.int32)
+    if int(rows.shape[0]) == 0:
+        return db
+    impl = get_backend(backend).resolve(db.device)
+    fn = ref.scatter_rows_ref if impl == "ref" else scatter_rows
+    return fn(db, rows, vals.to(device=db.device))

@@ -1,6 +1,10 @@
 """The plain PyTorch versions of every ported kernel, under the reference
 package's oracle names. PIR is bit-exact, so the kernels are held equal to
-these with tolerance zero."""
+these with tolerance zero.
+
+``scatter_rows_ref`` resolves duplicate rows to the last write, as the
+reference's kernel and host replay do; the reference's own jnp oracle
+leaves that order to XLA and is only defined on unique rows."""
 
 from __future__ import annotations
 
@@ -8,6 +12,12 @@ from repro_torch.kernels.gather_xor import gather_xor_plain as gather_xor_ref
 from repro_torch.kernels.parity_matmul import (
     parity_matmul_plain as parity_matmul_ref,
 )
+from repro_torch.kernels.scatter import scatter_rows_plain as scatter_rows_ref
 from repro_torch.kernels.xor_fold import xor_fold_plain as xor_fold_ref
 
-__all__ = ["xor_fold_ref", "parity_matmul_ref", "gather_xor_ref"]
+__all__ = [
+    "xor_fold_ref",
+    "parity_matmul_ref",
+    "gather_xor_ref",
+    "scatter_rows_ref",
+]

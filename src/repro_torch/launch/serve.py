@@ -3,12 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --scheme sparse \
         --theta 0.25 --n 8192 --record-bytes 256 --d 10 --da 5 --queries 256
 
+    # serve a LIVE store, one append delta of 64 records every 32 queries:
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --ingest-every 32 --ingest-rows 64
+
 Runs on the CUDA card; ``--device cpu`` names the CPU explicitly. Prints
 per-batch latency (host clock, ending in a device synchronisation),
 throughput, the (ε, δ) price per query, and the engine's cumulative cost
 metrics (records touched vs the Table-1 model). Every served batch is
-checked against the store. Only the synchronous submit+flush front is
-ported.
+checked against the store it was served from. Only the synchronous
+submit+flush front is ported (the async front and ``--compact-depth``
+are not).
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import numpy as np
 from repro_torch._device import resolve_device, synchronize
 from repro_torch.core import SCHEMES, make_scheme
 from repro_torch.core.accounting import PrivacyBudget
-from repro_torch.db import make_synthetic_store
+from repro_torch.data.pipeline import pir_delta_batch
+from repro_torch.db import VersionedStore, make_synthetic_store
 from repro_torch.kernels import registered_backends
 from repro_torch.serve import BatchScheduler, ServingPipeline, ShardedBackend
 
@@ -44,6 +50,11 @@ def build_args() -> argparse.ArgumentParser:
     ap.add_argument("--frontend", choices=["sync"], default="sync",
                     help="sync: submit+flush loop (the async front is not "
                          "ported yet)")
+    ap.add_argument("--ingest-every", type=int, default=0,
+                    help="serve a live VersionedStore and append one delta "
+                         "every N queries served; 0 = frozen store")
+    ap.add_argument("--ingest-rows", type=int, default=64,
+                    help="records appended per ingest delta")
     ap.add_argument("--backend", default="auto",
                     choices=sorted(registered_backends()),
                     help="execution backend (repro_torch.kernels.backend "
@@ -70,8 +81,14 @@ def make_engine(args) -> ServingPipeline:
     store = make_synthetic_store(
         args.n, args.record_bytes, seed=0, device=device
     )
+    # a live store serves through its frozen head; the backend is handed
+    # the base snapshot
+    served = (
+        VersionedStore(store, backend=args.backend)
+        if args.ingest_every > 0 else store
+    )
     return ServingPipeline(
-        store, scheme,
+        served, scheme,
         scheduler=BatchScheduler(
             max_batch=args.batch, max_wait_s=args.max_wait_ms / 1e3
         ),
@@ -83,11 +100,25 @@ def make_engine(args) -> ServingPipeline:
     )
 
 
+def _feed_delta(args, engine: ServingPipeline, step: int) -> None:
+    """One append delta of write traffic against the live store
+    (deterministic in step, like the query stream)."""
+    for delta in pir_delta_batch(
+        engine.store.n, args.record_bytes,
+        appends=args.ingest_rows, seed=2, step=step,
+    ):
+        engine.ingest(delta)
+
+
 def run_sync(args, engine: ServingPipeline) -> None:
     rng = np.random.default_rng(1)
     served = 0
+    ingest_step = 0
     t_start = time.perf_counter()
     while served < args.queries:
+        if args.ingest_every and served >= ingest_step * args.ingest_every:
+            _feed_delta(args, engine, ingest_step)
+            ingest_step += 1
         nq = min(args.batch, args.queries - served)
         idx = rng.integers(0, args.n, size=nq)
         asked = {}
@@ -108,6 +139,10 @@ def run_sync(args, engine: ServingPipeline) -> None:
         print(f"batch of {nq:4d} served in {dt*1e3:7.1f} ms "
               f"({nq/dt:8.0f} qps), verified exact")
     wall = time.perf_counter() - t_start
+    if args.ingest_every:
+        print(f"live store: v{engine.store_version}, n={engine.store.n} "
+              f"({engine.metrics['records_ingested']} records ingested "
+              f"mid-traffic); last swap: {engine.backend.last_swap}")
     print(f"\n{served} queries in {wall:.2f}s; engine metrics: {engine.metrics}")
 
 

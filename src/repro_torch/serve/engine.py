@@ -1,7 +1,8 @@
 """The serving pipeline: queue → router → execution backend.
 
 This is the production face of the paper: clients submit (client_id,
-index) requests; the :class:`~repro_torch.serve.scheduler.BatchScheduler`
+index) requests, or jagged multi-index requests (``submit_many``); the
+:class:`~repro_torch.serve.scheduler.BatchScheduler`
 batches them and pads to power-of-two buckets; the
 :class:`~repro_torch.serve.router.SchemeRouter` drives the configured
 scheme's staged protocol (DESIGN.md §Scheme protocol) to turn each batch
@@ -13,10 +14,14 @@ Privacy is enforced at admission: every accepted query spends its scheme's
 (ε, δ) from the client's :class:`~repro_torch.core.accounting.PrivacyBudget`
 (sequential composition, §2.2) and exhausted clients are refused.
 
+A pipeline built over a live :class:`~repro_torch.db.live.VersionedStore`
+serves its current frozen head and applies deltas with :meth:`ingest`;
+every batch pins the snapshot it was planned against and is answered
+against it, whatever lands in between.
+
 Not ported yet (ROADMAP.md Queue A; passing them raises
-``NotImplementedError``): the cross-batch ``QueryCache``, live
-``VersionedStore`` ingest, multi-index requests, replica-loss degradation
-and the async front.
+``NotImplementedError``): the cross-batch ``QueryCache``, replica-loss
+degradation and the async front.
 
 :class:`PIRServingEngine` is the back-compat facade over the pipeline.
 """
@@ -32,8 +37,14 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device, synchronize
 from repro_torch.core.accounting import PrivacyBudget
-from repro_torch.core.protocol import Queries, SchemeProtocol, as_protocol
+from repro_torch.core.protocol import (
+    Queries,
+    SchemeProtocol,
+    as_protocol,
+    multi_bucket,
+)
 from repro_torch.db import packing
+from repro_torch.db.live import Delta, VersionedStore
 from repro_torch.db.store import RecordStore
 from repro_torch.kernels.backend import ExecutionPlan
 from repro_torch.serve.router import SchemeRouter
@@ -46,8 +57,15 @@ __all__ = ["ServerStats", "PlannedBatch", "ServingPipeline", "PIRServingEngine"]
 @dataclasses.dataclass
 class PlannedBatch:
     """One cut batch, planned but not yet executed: the requests routed
-    into wire-level ``routed`` payloads with the batch's
-    :class:`~repro_torch.kernels.backend.ExecutionPlan` pre-resolved."""
+    into wire-level ``routed`` payloads (a ``MultiQueries`` for a jagged
+    batch) with the batch's
+    :class:`~repro_torch.kernels.backend.ExecutionPlan` pre-resolved.
+
+    ``store`` and ``store_version`` pin the frozen snapshot the batch
+    answers against: a write landing mid-batch makes a new head, and this
+    batch keeps answering against the store it was planned on.
+    ``lists`` holds the per-request index lists of a jagged batch (None
+    on the single-index path)."""
 
     batch: List[Request]
     padded: int
@@ -55,13 +73,18 @@ class PlannedBatch:
     exec_plan: ExecutionPlan
     plan_s: float  # wall time the plan phase itself took
     store: RecordStore
+    store_version: int = 0
+    lists: Optional[List[List[int]]] = None
 
 
 class ServingPipeline:
     """Batch-scheduled, scheme-routed PIR serving on one device.
 
-    ``device=None`` means the CUDA card (an error without one); the store
-    must already lie there. ``seed`` seeds the pipeline's one
+    ``store`` is a frozen :class:`RecordStore` or a live
+    :class:`~repro_torch.db.live.VersionedStore` (duck-typed: anything
+    with ``snapshot()``/``ingest()``); ``self.store`` is always a frozen
+    snapshot. ``device=None`` means the CUDA card (an error without one);
+    the store must already lie there. ``seed`` seeds the pipeline's one
     ``torch.Generator``, from which every batch's query randomness is
     drawn in turn.
     """
@@ -84,17 +107,18 @@ class ServingPipeline:
                 "the cross-batch QueryCache is not ported yet; see "
                 "ROADMAP.md Queue A"
             )
+        self.live: Optional[VersionedStore] = None
         if hasattr(store, "snapshot") and hasattr(store, "ingest"):
-            raise NotImplementedError(
-                "live VersionedStore serving is not ported yet; see "
-                "ROADMAP.md Queue A"
-            )
+            self.live = store
+            store = store.snapshot()
         dev = resolve_device(device)
         if store.device.type != dev.type:
             raise ValueError(
                 f"store lies on {store.device}, pipeline was asked for {dev}"
             )
         self.store = store
+        self.store_version = self.live.version if self.live is not None else 0
+        self._pending_deltas: List[Delta] = []
         self.device = store.device
         # `scheme` may be a staged SchemeProtocol instance or the
         # back-compat Scheme facade; `self.scheme` keeps whatever the
@@ -132,6 +156,7 @@ class ServingPipeline:
             "d_effective": float(self.staged.d),
             "epsilon_per_query": self._eps_per_query,
             "delta_per_query": self._delta_per_query,
+            "ingests": 0, "records_ingested": 0,
         }
 
     # ------------------------------------------------------------ clients
@@ -164,10 +189,26 @@ class ServingPipeline:
         """Queue one query; False if the client's privacy budget refuses."""
         return self.submit_request(client, index) is not None
 
+    def submit_request_many(
+        self, client: str, indices
+    ) -> Optional[Request]:
+        """Queue one jagged multi-index request; None if refused.
+
+        Admission charges the Composition-Lemma price up front: a k-index
+        request is k sequential lookups, so it spends k·(ε, δ)."""
+        k = len(indices)
+        if k == 0:
+            raise ValueError("submit_request_many needs at least one index")
+        eps, delta = self._eps_per_query, self._delta_per_query
+        if not self.budget(client).can_spend(k * eps, k * delta):
+            self.metrics["refused"] += 1
+            return None
+        self.budget(client).spend(k * eps, k * delta)
+        return self.scheduler.submit_many(client, indices)
+
     def submit_many(self, client: str, indices) -> bool:
-        raise NotImplementedError(
-            "multi-index requests are not ported yet; see ROADMAP.md Queue A"
-        )
+        """Queue one multi-index request; False if the budget refuses."""
+        return self.submit_request_many(client, indices) is not None
 
     # ------------------------------------------------------------ serving
     def fastest_servers(self, t: int) -> List[int]:
@@ -185,7 +226,8 @@ class ServingPipeline:
         :meth:`execute_planned`."""
         if not batch:
             return None
-        store = self.store
+        if any(r.indices for r in batch):
+            return self._plan_requests_multi(batch)
         b = len(batch)
         padded = self.scheduler.padded_size(b)
         clock = self.scheduler.clock
@@ -194,6 +236,10 @@ class ServingPipeline:
             dtype=torch.int32, device=self.device,
         )
         with self._phase_lock:
+            # pin the batch's snapshot under the lock: routing (n),
+            # execution and reconstruction all read the pinned store,
+            # never a newer head
+            store, ver = self.store, self.store_version
             self.metrics["queries"] += b
             # the plan timer starts only once the phase lock is held:
             # waiting for a concurrent execute's bookkeeping is queue
@@ -202,12 +248,86 @@ class ServingPipeline:
             # the generator is the pipeline's one stream of client
             # randomness: draws are serialised under the lock
             routed = self.router.plan(self._gen, store.n, q_idx)
+        if self.live is not None:
+            routed.store_version = ver
         exec_plan = self.backend.prepare(routed, scheme=self.staged)
         plan_s = clock() - t0
         return PlannedBatch(
             batch=list(batch), padded=padded, routed=routed,
             exec_plan=exec_plan, plan_s=plan_s, store=store,
+            store_version=ver,
         )
+
+    def _plan_requests_multi(self, batch: List[Request]) -> PlannedBatch:
+        """The multi-index half of :meth:`plan_requests`: the batch's
+        jagged index lists (a single-index request is a list of one)
+        flatten into one padded
+        :class:`~repro_torch.core.protocol.MultiQueries` wire batch via
+        :meth:`~repro_torch.serve.router.SchemeRouter.plan_many`. The
+        ``queries`` metric counts flattened indices: each is a priced
+        lookup."""
+        lists = [list(r.index_list) for r in batch]
+        padded = multi_bucket(lists)
+        clock = self.scheduler.clock
+        with self._phase_lock:
+            store, ver = self.store, self.store_version  # pin (see above)
+            self.metrics["queries"] += sum(r.k for r in batch)
+            t0 = clock()
+            routed = self.router.plan_many(self._gen, store.n, lists)
+        if self.live is not None:
+            routed.queries.store_version = ver  # the flat wire carries it
+        exec_plan = self.backend.prepare(routed, scheme=self.staged)
+        plan_s = clock() - t0
+        return PlannedBatch(
+            batch=list(batch), padded=padded, routed=routed,
+            exec_plan=exec_plan, plan_s=plan_s, store=store,
+            store_version=ver, lists=lists,
+        )
+
+    @staticmethod
+    def _assemble(r: Request, rows: np.ndarray) -> np.ndarray:
+        """A request's answer from its per-index record bytes: [k, nbytes]
+        for a multi-index request, flat [nbytes] for a single-index one."""
+        if r.indices:
+            return np.array(rows)
+        return np.array(rows[0])
+
+    def _execute_planned_multi(
+        self, planned: PlannedBatch
+    ) -> List[Tuple[Request, np.ndarray]]:
+        """Execute a multi-index planned batch: one backend answer for the
+        whole flattened wire batch, ONE flat reconstruction and one
+        device-to-host copy; request r's i-th index is flat row
+        r·k_max + i, so the per-request split is numpy slicing."""
+        routed = planned.routed
+        clock = self.scheduler.clock
+        t1 = clock()
+        responses = self.backend.answer_batch(
+            routed, plan=planned.exec_plan, scheme=self.staged,
+            store=planned.store,
+        )
+        flat_out = self.router.finalize(routed, responses)
+        synchronize(self.device)
+        dt = planned.plan_s + (clock() - t1)
+
+        nbytes = -(-planned.store.record_bits // 8)
+        raw_all = packing.unpack_bytes_np(
+            packing.words_to_numpy(flat_out), nbytes
+        )
+        k_max = routed.k_max
+        flat_total = sum(len(lst) for lst in planned.lists)
+        with self._phase_lock:
+            self.scheduler.observe_service(planned.padded, dt)
+            self.metrics["batches"] += 1
+            self.metrics["padded"] += planned.padded - flat_total
+            costs = self.staged.costs(planned.store.n)
+            self.metrics["records_touched"] += costs["C_p"] / 2.0 * flat_total
+            self.metrics["blocks_sent"] += costs["C_m"] * flat_total
+        return [
+            (r, self._assemble(
+                r, raw_all[j * k_max: j * k_max + len(planned.lists[j])]))
+            for j, r in enumerate(planned.batch)
+        ]
 
     def execute_planned(
         self, planned: Optional[PlannedBatch]
@@ -217,6 +337,8 @@ class ServingPipeline:
         compute runs outside the pipeline's phase lock."""
         if planned is None:
             return []
+        if planned.lists is not None:  # a jagged multi-index batch
+            return self._execute_planned_multi(planned)
         batch = planned.batch
         b = len(batch)
         routed = planned.routed
@@ -227,7 +349,8 @@ class ServingPipeline:
         clock = self.scheduler.clock
         t1 = clock()
         responses = self.backend.answer_batch(
-            routed, plan=planned.exec_plan, scheme=self.staged
+            routed, plan=planned.exec_plan, scheme=self.staged,
+            store=planned.store,
         )
         out = self.router.finalize(routed, responses)
         synchronize(self.device)
@@ -260,6 +383,84 @@ class ServingPipeline:
         if len(self.scheduler):
             self.metrics["truncated"] += 1
         return batch
+
+    # ------------------------------------------------------------- ingest
+    def _require_live(self) -> VersionedStore:
+        if self.live is None:
+            raise RuntimeError(
+                "pipeline serves a frozen RecordStore; construct it over "
+                "a VersionedStore to ingest deltas"
+            )
+        return self.live
+
+    def ingest(self, delta: Delta) -> int:
+        """Apply one delta to the live store and roll the serve path
+        forward; returns the new store version.
+
+        Under the phase lock, in order: (1) the
+        :class:`~repro_torch.db.live.VersionedStore` applies the delta on
+        its device and installs a new frozen head; (2) the execution
+        backend swaps onto it — a same-shape delta keeps every cached
+        plan and refreshes only the touched bitplane rows, an append
+        re-plans; (3) admission re-prices (ε, δ) when ``n`` changed.
+        Batches planned before this call still answer against their
+        pinned snapshot."""
+        live = self._require_live()
+        with self._phase_lock:
+            touched = live.touched_rows(delta, n_before=live.n)
+            ver = live.ingest(delta)
+            snap = live.snapshot()
+            same_shape = (
+                snap.n == self.store.n and snap.words == self.store.words
+            )
+            self.backend.swap_store(snap, touched_rows=touched, live=live)
+            self.store = snap
+            self.store_version = ver
+            if not same_shape:
+                # an append grew n: the admission price is a function of n
+                self._eps_per_query, self._delta_per_query = (
+                    self.staged.privacy(snap.n)
+                )
+                self.metrics["epsilon_per_query"] = self._eps_per_query
+                self.metrics["delta_per_query"] = self._delta_per_query
+            self.metrics["ingests"] += 1
+            self.metrics["records_ingested"] += delta.count
+            return ver
+
+    def queue_delta(self, delta: Delta) -> None:
+        """Enqueue a delta for a later :meth:`ingest_step`."""
+        self._require_live()
+        with self._phase_lock:
+            self._pending_deltas.append(delta)
+
+    @property
+    def pending_deltas(self) -> int:
+        """Deltas queued but not yet applied."""
+        return len(self._pending_deltas)
+
+    def ingest_step(self, max_deltas: int = 1) -> int:
+        """Apply up to ``max_deltas`` queued deltas, oldest first. Returns
+        how many were applied."""
+        done = 0
+        while done < max_deltas:
+            with self._phase_lock:
+                if not self._pending_deltas:
+                    break
+                delta = self._pending_deltas.pop(0)
+            self.ingest(delta)
+            done += 1
+        return done
+
+    def compact_step(self, *, min_log_depth: int = 1) -> int:
+        """Rebase the live store's delta log onto its current head when
+        the log is at least ``min_log_depth`` deep; the store's oracle
+        check replays the log on the host and holds it bit for bit against
+        the head first. Returns how many deltas were compacted away (0:
+        frozen store, shallow log, or a write raced the check). No phase
+        lock: compaction changes neither the head nor the version."""
+        if self.live is None or self.live.log_depth < max(1, min_log_depth):
+            return 0
+        return self.live.compact()
 
     def step(self) -> Dict[str, np.ndarray]:
         """Serve at most one scheduled batch (≤ max_batch; the rest of the

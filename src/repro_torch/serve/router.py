@@ -13,20 +13,26 @@ far consumes it.
 The router also exposes the protocol's planning split:
 :meth:`SchemeRouter.precompute` generates the query-independent randomness
 of a whole batch ahead of time, and ``plan(..., pre=...)`` finishes it for
-the actual indices — the wire boundary.
+the actual indices — the wire boundary. :meth:`SchemeRouter.plan_many`
+and :meth:`SchemeRouter.finalize_many` do the same for a jagged
+multi-index batch, flattened onto the single-index wire.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.protocol import (
     Answers,
+    MultiQueries,
     Queries,
     SchemeProtocol,
     as_protocol,
+    multi_bucket,
+    multi_query,
+    multi_reconstruct,
 )
 
 __all__ = ["RoutedBatch", "SchemeRouter"]
@@ -89,9 +95,44 @@ class SchemeRouter:
             plan = self.scheme.precompute(gen, n, int(q_idx.shape[0]))
         return self.scheme.query(plan, q_idx, pick_servers=self._pick_servers)
 
+    def plan_many(
+        self,
+        gen: torch.Generator,
+        n: int,
+        index_lists: Sequence[Sequence[int]],
+        *,
+        pre: Optional[Any] = None,
+    ) -> MultiQueries:
+        """Jagged per-request index lists -> one flattened multi-index
+        wire batch on the generator's device. ``pre`` must have been
+        precomputed for ``multi_bucket(index_lists)``."""
+        if pre is not None:
+            if not self.scheme.has_precompute:
+                raise ValueError(
+                    f"{self.scheme.name} has no precompute half"
+                )
+            if pre.n != n:
+                raise ValueError(f"pre built for n={pre.n}, store has n={n}")
+            plan = pre
+        else:
+            plan = self.scheme.precompute(gen, n, multi_bucket(index_lists))
+        return multi_query(
+            self.scheme, plan, index_lists, pick_servers=self._pick_servers,
+            device=gen.device,
+        )
+
     # -------------------------------------------------------- reconstruction
     def finalize(self, routed: Queries, responses: torch.Tensor) -> torch.Tensor:
         """Per-server responses [d_eff, B, W] -> [B, W] packed records."""
         return self.scheme.reconstruct(
             Answers(queries=routed, responses=responses)
+        )
+
+    def finalize_many(
+        self, routed: MultiQueries, responses: torch.Tensor
+    ) -> List[torch.Tensor]:
+        """Per-server responses for a multi-index batch -> per-request
+        [k_r, W] packed rows in request order (padding dropped)."""
+        return multi_reconstruct(
+            self.scheme, Answers(queries=routed, responses=responses)
         )

@@ -1,6 +1,7 @@
 """Request queue + adaptive batch scheduling for the serving pipeline.
 
-Clients enqueue (client, index) requests asynchronously; the scheduler
+Clients enqueue (client, index) requests — or jagged multi-index
+requests, (client, [indices]) — asynchronously; the scheduler
 decides *when* to cut a batch and *how big* it should be. Two forces pull
 against each other: bigger batches amortise dispatch and reuse each
 streamed db tile across more queries, but queueing for them adds latency.
@@ -15,8 +16,12 @@ The policy here:
   * **Bucket padding**: batches are padded up to power-of-two buckets
     (capped at ``max_batch``) so the server paths see O(log max_batch)
     distinct shapes (and plan cells) instead of one per batch size.
-  * **Truncation**: a cut batch never exceeds ``max_batch``; the rest of
-    the queue stays for the next cut.
+  * **Truncation**: a cut batch never exceeds ``max_batch`` flattened
+    indices; the rest of the queue stays for the next cut.
+
+A k-index request costs k lookups to serve, so fullness and truncation
+count **flattened** indices (:attr:`BatchScheduler.flat_len`), not
+requests.
 
 The scheduler is deliberately synchronous and deterministic — ``clock``
 is injectable so behavior tests need no real sleeps — and knows nothing
@@ -28,19 +33,36 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Deque, List, Optional
+from typing import Callable, Deque, List, Optional, Sequence, Tuple
 
 __all__ = ["Request", "BatchScheduler", "bucket_size"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Request:
-    """One queued single-index query."""
+    """One queued query — a single index, or a jagged multi-index list.
+
+    ``indices`` is empty for single-index requests (``index`` is the
+    query); a multi-index request carries its whole list there, with
+    ``index`` mirroring the first entry. The scheduler prices a request by
+    :attr:`k`, its flattened index count.
+    """
 
     client: str
     index: int
     seq: int
     t_enqueue: float
+    indices: Tuple[int, ...] = ()
+
+    @property
+    def k(self) -> int:
+        """Flattened index count (what batching and budgets price)."""
+        return len(self.indices) if self.indices else 1
+
+    @property
+    def index_list(self) -> Tuple[int, ...]:
+        """The request's indices as a tuple, single-index included."""
+        return self.indices if self.indices else (self.index,)
 
 
 def bucket_size(b: int, max_batch: int) -> int:
@@ -80,6 +102,7 @@ class BatchScheduler:
         self.clock = clock
         self._queue: Deque[Request] = deque()
         self._seq = 0
+        self._flat = 0  # total flattened indices queued (Σ r.k)
         self._service_s_per_query: Optional[float] = None
         self._target = max_batch  # optimistic until service times arrive
 
@@ -87,11 +110,32 @@ class BatchScheduler:
     def __len__(self) -> int:
         return len(self._queue)
 
+    @property
+    def flat_len(self) -> int:
+        """Total flattened indices queued — what ready() and next_batch
+        cut on."""
+        return self._flat
+
     def submit(self, client: str, index: int) -> Request:
         req = Request(client=client, index=int(index), seq=self._seq,
                       t_enqueue=self.clock())
         self._seq += 1
         self._queue.append(req)
+        self._flat += req.k
+        return req
+
+    def submit_many(self, client: str, indices: Sequence[int]) -> Request:
+        """Queue one jagged multi-index request (k = len(indices) ≥ 1)."""
+        if not len(indices):
+            raise ValueError("submit_many needs at least one index")
+        req = Request(
+            client=client, index=int(indices[0]), seq=self._seq,
+            t_enqueue=self.clock(),
+            indices=tuple(int(i) for i in indices),
+        )
+        self._seq += 1
+        self._queue.append(req)
+        self._flat += req.k
         return req
 
     @property
@@ -104,19 +148,26 @@ class BatchScheduler:
 
     def ready(self) -> bool:
         """True when a batch should be cut: target reached or deadline
-        hit."""
+        hit. The target compares against flattened indices."""
         if not self._queue:
             return False
-        if len(self._queue) >= self._target:
+        if self._flat >= self._target:
             return True
         return bool(self.max_wait_s) and self.oldest_wait_s() >= self.max_wait_s
 
     def next_batch(self) -> List[Request]:
-        """Pop the next batch, at most ``max_batch`` requests (truncation
-        leaves the rest)."""
+        """Pop the next batch, bounded by ``max_batch`` flattened indices
+        (truncation leaves the rest; one oversized multi-index request is
+        still taken alone rather than stranded)."""
         batch: List[Request] = []
-        while self._queue and len(batch) < self.max_batch:
+        flat = 0
+        while self._queue:
+            nxt = self._queue[0]
+            if batch and flat + nxt.k > self.max_batch:
+                break
             batch.append(self._queue.popleft())
+            flat += nxt.k
+        self._flat -= flat
         return batch
 
     def padded_size(self, b: int) -> int:

@@ -6,6 +6,11 @@ import torch
 
 CPU = torch.device("cpu")
 
+# the suite runs these files in parallel workers beside the JAX tests,
+# some of which wait on timers; the port's tests are small, so one
+# intra-op thread per worker leaves the other cores to the rest
+torch.set_num_threads(1)
+
 
 def words_t2n(t: torch.Tensor) -> np.ndarray:
     """Packed int32 torch words -> uint32 numpy (the reference's dtype)."""

@@ -187,7 +187,7 @@ def test_path_answer_fn_branch_equals_reference(path, impl, m_budget, blocks):
 
 
 def test_path_answer_fn_rejects_unknown_paths():
-    for path in ("nope", "sparse_multi_fused", "direct"):
+    for path in ("nope", "sparse_multi", "direct"):
         with pytest.raises(ValueError, match="no kernel form"):
             _path_answer_fn(path, "cuda", None, {})
 

@@ -11,13 +11,19 @@ import torch
 
 from repro_torch.db import make_synthetic_store
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused import fused_gather_fold, fused_gather_fold_plain
+from repro_torch.kernels.fused import (
+    fused_gather_fold,
+    fused_gather_fold_plain,
+    fused_multi_gather_fold,
+    fused_multi_gather_fold_plain,
+)
 from repro_torch.kernels.gather_xor import (
     gather_xor,
     gather_xor_plain,
     indices_from_mask,
 )
 from repro_torch.kernels.parity_matmul import parity_matmul, parity_matmul_plain
+from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
 from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
 
 pytestmark = pytest.mark.cuda
@@ -155,3 +161,168 @@ def test_reduced_pipeline_on_the_card_by_default(cuda_device, scheme, kernel):
     assert kernel.launches == before + cfg.d
     for c, i in enumerate((0, 5, cfg.n_records - 1)):
         assert (out[f"c{c}"] == pipe.store.record_bytes(i)).all()
+
+
+# --------------------------------------------------------------- scatter_rows
+SCATTER_SHAPES = [
+    # (n rows, W elements, m updates)
+    (1, 1, 1),
+    (16, 4, 3),
+    (33, 7, 40),        # ragged width, more updates than rows
+    (257, 12, 64),
+    (1000, 384, 300),   # the CT record width
+    (4099, 13, 4096),   # the ingest chunk
+]
+SCATTER_DTYPES = [torch.int32, torch.uint8, torch.float32, torch.int16]
+
+
+def _scatter_case(n, w, m, dtype, device, seed, unique):
+    g = torch.Generator().manual_seed(seed)
+    db = torch.randint(0, 255, (n, w), generator=g).to(dtype)
+    vals = torch.randint(0, 255, (m, w), generator=g).to(dtype)
+    if unique:
+        rows = torch.randperm(max(n, m), generator=g)[:m] % n
+        rows = torch.unique(rows)[: min(m, n)]
+        vals = vals[: rows.numel()]
+    else:
+        rows = torch.randint(0, n, (m,), generator=g)
+    return (db.to(device), rows.to(torch.int32).to(device),
+            vals.to(device))
+
+
+@pytest.mark.parametrize("n,w,m", SCATTER_SHAPES)
+@pytest.mark.parametrize("dtype", SCATTER_DTYPES)
+@pytest.mark.parametrize("unique", [True, False])
+def test_scatter_rows_kernel_equals_plain(cuda_device, n, w, m, dtype, unique):
+    db, rows, vals = _scatter_case(n, w, m, dtype, cuda_device, n + w, unique)
+    before = db.clone()
+    launches = scatter_rows.launches
+    got = scatter_rows(db, rows, vals)
+    assert scatter_rows.launches == launches + 1
+    _same(got, scatter_rows_plain(db, rows, vals))
+    _same(db, before)  # functional: the input is never written
+    assert got.data_ptr() != db.data_ptr()
+
+
+def test_scatter_rows_kernel_last_write_wins(cuda_device):
+    db = torch.zeros((8, 5), dtype=torch.int32, device=cuda_device)
+    rows = torch.tensor([3, 1, 3, 3, 1, 7], dtype=torch.int32,
+                        device=cuda_device)
+    vals = torch.arange(30, dtype=torch.int32, device=cuda_device).reshape(6, 5)
+    got = scatter_rows(db, rows, vals)
+    torch.cuda.synchronize()
+    want = torch.zeros_like(db)
+    want[3], want[1], want[7] = vals[3], vals[4], vals[5]
+    assert torch.equal(got, want)
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    assert scatter_rows(db, empty, vals[:0]) is db
+    out_of_range = torch.tensor([-1, 8], dtype=torch.int32, device=cuda_device)
+    _same(scatter_rows(db, out_of_range, vals[:2]), db)
+
+
+def test_scatter_rows_kernel_on_a_row_slice(cuda_device):
+    """An unaligned view (rows starting mid-vector) takes the narrower
+    copy path and stays exact."""
+    base = torch.arange(7 * 9 + 1, dtype=torch.uint8, device=cuda_device)
+    db = base[1:].reshape(7, 9)[:6]
+    assert db.is_contiguous() and db.data_ptr() % 4
+    rows = torch.tensor([0, 5], dtype=torch.int32, device=cuda_device)
+    vals = torch.full((2, 9), 255, dtype=torch.uint8, device=cuda_device)
+    _same(scatter_rows(db, rows, vals), scatter_rows_plain(db, rows, vals))
+
+
+# ---------------------------------------------------- fused_multi_gather_fold
+MULTI_CASES = [
+    # (counts per request, k_max)
+    ((5,), 8),
+    ((1, 1, 1, 1, 1, 1, 1, 1), 1),
+    ((3, 0, 8, 1), 8),
+    ((2, 2), 2),
+    ((0, 4, 1), 4),
+    ((4, 1, 3, 2, 4, 0, 2, 1), 4),
+]
+
+
+def _multi_case(n, rb, counts, k_max, device, seed, garbage):
+    store = make_synthetic_store(n, rb, seed=seed, device=device)
+    rng = np.random.default_rng(seed + 7)
+    m = min(n, 96)
+    idx = np.full((len(counts) * k_max, m), -1, np.int32)
+    for r, c in enumerate(counts):
+        for i in range(k_max if garbage else c):
+            w = int(rng.integers(1, m + 1))
+            idx[r * k_max + i, :w] = rng.choice(n, size=w, replace=False)
+    offsets = np.cumsum([0] + list(counts)).astype(np.int32)
+    return (store, torch.from_numpy(idx).to(device),
+            torch.from_numpy(offsets).to(device))
+
+
+@pytest.mark.parametrize("counts,k_max", MULTI_CASES)
+@pytest.mark.parametrize("n,rb", [(100, 12), (2048, 64), (37, 129)])
+@pytest.mark.parametrize("grid_order", ["rw", "wr"])
+@pytest.mark.parametrize("garbage", [False, True])
+def test_fused_multi_kernel_equals_plain(cuda_device, counts, k_max, n, rb,
+                                         grid_order, garbage):
+    store, idx, off = _multi_case(n, rb, counts, k_max, cuda_device,
+                                  seed=k_max + n, garbage=garbage)
+    launches = fused_multi_gather_fold.launches
+    got = fused_multi_gather_fold(store.packed, idx, off, k_max=k_max,
+                                  grid_order=grid_order)
+    assert fused_multi_gather_fold.launches == launches + 1
+    _same(got, fused_multi_gather_fold_plain(store.packed, idx, off, k_max))
+
+
+@pytest.mark.parametrize("block_w", [1, 8, 32, 128])
+def test_fused_multi_kernel_block_sweep(cuda_device, block_w):
+    store, idx, off = _multi_case(91, 21, (4, 0, 7), 8, cuda_device, seed=3,
+                                  garbage=True)
+    for go in ("rw", "wr"):
+        _same(fused_multi_gather_fold(store.packed, idx, off, k_max=8,
+                                      block_w=block_w, grid_order=go),
+              fused_multi_gather_fold_plain(store.packed, idx, off, 8))
+
+
+def test_fused_multi_kernel_all_live_equals_flat(cuda_device):
+    store, mask = _case(1024, 64, 32, cuda_device, p=0.25)
+    idx = indices_from_mask(mask, 1024)
+    off = torch.arange(9, dtype=torch.int32, device=cuda_device) * 4
+    flat = fused_gather_fold(store.packed, idx)
+    for go in ("rw", "wr"):
+        _same(fused_multi_gather_fold(store.packed, idx, off, k_max=4,
+                                      grid_order=go), flat)
+
+
+def test_fused_multi_kernel_refuses_oversized_slab(cuda_device):
+    store, idx, off = _multi_case(100_000, 16, (1, 1), 1, cuda_device, seed=0,
+                                  garbage=False)
+    with pytest.raises(ValueError, match="shared"):
+        fused_multi_gather_fold(store.packed, idx, off, k_max=1, block_w=4)
+
+
+def test_live_store_and_multi_pipeline_on_the_card(cuda_device):
+    """A live store and multi-index requests through the reduced pipeline
+    on the card: the ingest launched the scatter kernel, the multi batch
+    the fused multi kernel, once per server, and every answer is exact."""
+    from repro_torch.configs import pir_ct
+    from repro_torch.data.pipeline import pir_delta_batch
+    from repro_torch.db import VersionedStore
+
+    cfg = pir_ct.reduced()
+    live = VersionedStore(make_synthetic_store(
+        cfg.n_records, cfg.record_bytes, seed=0, device=cuda_device))
+    pipe = pir_ct.make_serving_pipeline(cfg, store=live, seed=2)
+    before = scatter_rows.launches
+    for delta in pir_delta_batch(live.n, cfg.record_bytes, updates=100,
+                                 deletes=5, seed=1, step=0):
+        pipe.ingest(delta)
+    assert scatter_rows.launches == before + 2
+    lists = [[1, 2, 3], [2047], [5, 6]]
+    for c, lst in enumerate(lists):
+        assert pipe.submit_many(f"c{c}", lst)
+    before = fused_multi_gather_fold.launches
+    out = pipe.flush()
+    assert fused_multi_gather_fold.launches == before + cfg.d
+    for c, lst in enumerate(lists):
+        want = np.stack([live.snapshot().record_bytes(i) for i in lst])
+        assert (out[f"c{c}"] == want).all()
+    assert pipe.compact_step() == 2

@@ -411,16 +411,7 @@ def test_deferred_features_raise():
     sch = make_scheme("chor", d=2, d_a=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingPipeline(store, sch, cache=object(), device="cpu")
-
-    class Live:
-        def snapshot(self): ...
-        def ingest(self): ...
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingPipeline(Live(), sch, device="cpu")
     pipe = _pipe(store, sch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.submit_many("c", [1, 2])
     routed = pipe.router.plan(torch.Generator().manual_seed(0), 64,
                               torch.zeros(1, dtype=torch.int32))
     routed.kind = "index"
