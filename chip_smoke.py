@@ -7,13 +7,18 @@ Drives the port's paths through the serving pipeline at the size of the
 paper's own workload (10^6 records of 1536 bytes, d = 100 databases,
 Sparse-PIR at θ = 0.25 and Chor): one private lookup, serving a live store
 that takes update, delete and append deltas, and multi-index requests.
-Builds the six CUDA kernels from the sources in this tree, holds each
-against its plain PyTorch version on the card (bit for bit: tolerance 0,
-PIR is exact), times them with CUDA events, and checks that the
-pipeline's answers equal the stored (or pinned) records and that each
-path went through its kernels (launch counters, set to 0 before a path
-and read after it). One JSON line per phase; the last line is the
-verdict.
+Then the attention models at full width: SmolLM-135M serving (prefill and
+greedy decode of 4 x 4096 tokens, one 32 768-token prefill, the f32 model
+on the card against the CPU) and BERT4Rec scoring 32 users whose item
+histories are fetched by Sparse-PIR. Builds the seven CUDA kernels from
+the sources in this tree, holds each against its plain PyTorch version on
+the card (bit for bit for the six GF(2) kernels, PIR is exact; within the
+reference's float tolerance for flash attention), times them with CUDA
+events, and checks that the answers are right (stored or pinned records;
+finite logits that agree with the CPU; private logits equal to the plain
+ones bit for bit) and that each path went through its kernels (launch
+counters, set to 0 before a path and read after it). One JSON line per
+phase; the last line is the verdict.
 
 Needs a CUDA device and ``nvcc``; exits non-zero without printing a verdict
 when there is no device. Imports only ``repro_torch``.
@@ -37,6 +42,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12  # tensor cores
+F32_FLOPS_PER_S = 67e12    # outside the tensor cores
+
+# flash attention against its plain version: in bf16 both sides accumulate
+# in f32 and round once to bf16, so they differ by at most one bf16 ulp
+# (2^-8 to 2^-7 of the value) plus f32 noise
+FLASH_TOL = {torch.float32: {"rtol": 1e-5, "atol": 1e-5},
+             torch.bfloat16: {"rtol": 8e-3, "atol": 1e-3}}
 
 CSRC = "src/repro_torch/kernels/csrc/"
 
@@ -266,6 +279,375 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
     torch.cuda.empty_cache()
 
 
+def device_split(fn, groups):
+    """Device time of one run of ``fn`` by kernel, from a torch.profiler
+    trace of the card: milliseconds per group (a group takes the kernels
+    whose name holds one of its substrings; "other" the rest), the summed
+    kernel time, the host wall time and the busy share (kernel time over
+    wall time). Measurement only: it runs ``fn`` once more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    split = {g: 0.0 for g in list(groups) + ["other"]}
+    launches = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        launches += 1
+        group = next((g for g, keys in groups.items()
+                      if any(k in e.name for k in keys)), "other")
+        split[group] += us / 1e3
+    busy = sum(split.values())
+    return {"ms": split, "device_ms": busy, "wall_ms": wall * 1e3,
+            "busy_share": busy / (wall * 1e3) if wall > 0 else None,
+            "device_events": launches}
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one attention row (positions from 0)."""
+    qpos = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk, np.int64)
+    lo = (np.clip(qpos - window + 1, 0, sk) if window is not None
+          else np.zeros(sq, np.int64))
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_bound(bh, sq, sk, d, causal, window, dtype, peak=None):
+    """The larger of 4·d flops per unmasked pair over ``peak`` (by default
+    the type's: bf16 tensor cores, float32 outside them) and the Q/K/V/O
+    bytes over the memory rate."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if peak is None:
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    ops_s = 4.0 * bh * attention_pairs(sq, sk, causal, window) * d / peak
+    bytes_s = bh * (2 * sq + 2 * sk) * d * elem / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s > bytes_s else "bytes")
+
+
+def bert4rec_fold_operands(dev):
+    """The operands of one ``xor_fold`` launch of the private BERT4Rec path:
+    the item table as a store of 64 words per record, and the request masks
+    of server 0 that Sparse-PIR's query stage builds for the 6400 item ids
+    of 32 users (the config's d, d_a and θ)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.protocol import as_protocol
+    from repro_torch.core.schemes import make_scheme
+    from repro_torch.data import bert4rec_batch
+    from repro_torch.db.store import RecordStore
+    from repro_torch.models.recsys import bert4rec_vocab
+
+    cfg = get_arch("bert4rec").CONFIG
+    g = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn((bert4rec_vocab(cfg), cfg.embed_dim), generator=g,
+                        device=dev)
+    store_ = RecordStore.from_float_table(table)
+    staged = as_protocol(make_scheme(
+        "sparse", cfg.private_lookup_d, cfg.private_lookup_da,
+        theta=cfg.private_lookup_theta))
+    ids = torch.from_numpy(bert4rec_batch(cfg, 32, seed=0, step=0)["seq"])
+    ids = ids.reshape(-1).to(device=dev, dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    plan = staged.precompute(gen, store_.n, int(ids.numel()))
+    mask = staged.query(plan, ids).payload[0].contiguous()
+    del plan
+    torch.cuda.empty_cache()
+    return store_.packed, mask
+
+
+def fold_bound(db, mask):
+    """xor_fold's bound: the store, the mask and the answers moved once,
+    against one 32-bit XOR per word of each selected row at the card's
+    32-bit rate outside the tensor cores."""
+    (n, w), q = db.shape, mask.shape[0]
+    bytes_s = (n * w * 4 + mask.numel() * mask.element_size()
+               + q * w * 4) / HBM_BYTES_PER_S
+    ops_s = int(torch.count_nonzero(mask)) * w / F32_FLOPS_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s > bytes_s else "bytes")
+
+
+def check_flash(label, bh, sq, d, dtype, causal, window, dev,
+                flash_attention_fwd, flash_attention_plain, plain_rows=None,
+                iters=10):
+    """The flash kernel at one operand set against its plain version
+    (``FLASH_TOL``; bf16 operands once more cast to f32, held at 1e-5, so
+    the tile loop and its skips are checked without the output's
+    rounding), timed beside the plain version and PyTorch's
+    scaled_dot_product_attention on the same operands."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(sq + d)
+    q, k, v = (torch.randn((bh, sq, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    rows = slice(0, plain_rows or bh)
+
+    def kernel():
+        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+    def plain():
+        return flash_attention_plain(q[rows], k[rows], v[rows], causal=causal,
+                                     window=window)
+
+    def held(q_, k_, v_, tol):
+        got = flash_attention_fwd(q_, k_, v_, causal=causal,
+                                  window=window)[rows]
+        want = flash_attention_plain(q_[rows], k_[rows], v_[rows],
+                                     causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), **tol):
+            raise AssertionError(
+                f"flash_attention_fwd {label} ({got.dtype}): kernel differs "
+                f"from the plain version (max abs err {err}, {tol})")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention_fwd {label}: non-finite "
+                                 "output")
+        return err
+
+    tol = FLASH_TOL[dtype]
+    err = held(q, k, v, tol)
+    f32_check = None
+    if dtype != torch.float32:
+        f32_tol = FLASH_TOL[torch.float32]
+        f32_check = {"max_abs_err": held(*(t.float() for t in (q, k, v)),
+                                         f32_tol),
+                     "tolerance": f32_tol}
+    # the same function as one PyTorch call: causal without a window as
+    # is_causal, a window as a boolean band mask
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+    band = None
+    if window is not None:
+        qpos = torch.arange(sq, device=dev)[:, None]
+        kpos = torch.arange(sq, device=dev)[None, :]
+        band = (kpos <= qpos) & (kpos > qpos - window)
+
+    def library():
+        if band is not None:
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+
+    bound_ms, bound_by = flash_bound(bh, sq, sq, d, causal, window, dtype)
+    # the same work's flops at the bf16 tensor-core peak, whatever the
+    # operands' type: below bound_ms where the operands are f32
+    bf16_peak_ms, bf16_peak_by = flash_bound(bh, sq, sq, d, causal, window,
+                                             dtype, peak=BF16_FLOPS_PER_S)
+    return {
+        "label": label,
+        "shape": {"bh": bh, "sq": sq, "sk": sq, "d": d,
+                  "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+                  "window": window, "plain_rows": plain_rows or bh},
+        "max_abs_err": err, "tolerance": tol,
+        "same_operands_in_f32": f32_check,
+        "ms": time_ms(kernel, iters=iters),
+        "plain_ms": time_ms(plain, warmup=1, iters=2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_at_bf16_peak_ms": bf16_peak_ms,
+        "bound_at_bf16_peak_by": bf16_peak_by,
+        "library_ms": time_ms(library, iters=iters),
+        "library": ("scaled_dot_product_attention"
+                    + (" (band mask)" if band is not None else "")),
+    }
+
+
+def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
+    """Full-width SmolLM-135M (30 layers, bf16, random weights from seed 0)
+    through ``prefill`` + ``decode_step``: 4 requests of 4096 tokens and
+    32 greedy tokens each, one request of 32 768 tokens, and the f32 model
+    on the card against the same weights on the CPU. Returns each sub-path's
+    launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("smollm-135m").CONFIG
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    batch, prompt, new = 4, 4096, 32
+    tokens = torch.from_numpy(
+        lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
+    counts = {}
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = T.prefill(model, cfg, tokens, prompt + new)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = flash.launches
+    tok = logits.argmax(-1, keepdim=True)
+    out = [tok]
+    t = time.perf_counter()
+    for i in range(new):
+        logits, cache = T.decode_step(model, cfg, cache, tok, prompt + i)
+        tok = logits.argmax(-1, keepdim=True)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    counts["serve_lm_smollm"] = read_counts()
+    if prefill_launches != cfg.n_layers or flash.launches != cfg.n_layers:
+        raise AssertionError(f"serve_lm_smollm: {prefill_launches} flash "
+                             f"launches in the prefill, {flash.launches} in "
+                             f"all, expected {cfg.n_layers}")
+    generated = torch.cat(out, dim=1)
+    if not (torch.isfinite(logits).all() and generated.min() >= 0
+            and generated.max() < cfg.vocab
+            and generated.shape == (batch, new + 1)):
+        raise AssertionError("serve_lm_smollm: bad logits or tokens")
+    line = {
+        "phase": "serve_lm_smollm", "card": card, "config": cfg.name,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "heads":
+        [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab, "dtype": cfg.dtype,
+        "requests": batch, "prompt": prompt, "new_tokens": new,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": batch * prompt / prefill_s,
+        "decode_ms_per_token": decode_s / new * 1e3,
+        "decode_tokens_per_s": batch * new / decode_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "flash_attention_fwd_launches_per_prefill": prefill_launches,
+        "launches": counts["serve_lm_smollm"],
+    }
+    # where the device time goes (measurement runs after the counts are
+    # read): one more prefill, and one decode step that rewrites the last
+    # position
+    groups = {"flash_attention_fwd": ["flash_fwd_kernel"],
+              "matmul": ["gemm", "Gemm", "nvjet", "cutlass", "xmma"]}
+    line["split_prefill"] = device_split(
+        lambda: T.prefill(model, cfg, tokens, prompt + new), groups)
+    line["split_decode_step"] = device_split(
+        lambda: T.decode_step(model, cfg, cache, tok, prompt + new - 1),
+        groups)
+    del cache, logits
+
+    # one request at the prefill_32k length (its batch of 32 cut to 1)
+    long = 32768
+    tokens = torch.from_numpy(
+        lm_batch(cfg, 1, long, seed=0, step=1)["tokens"]).to(dev)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = T.prefill(model, cfg, tokens, long)
+    torch.cuda.synchronize()
+    line["prefill_32k"] = {
+        "tokens": long, "prefill_s": time.perf_counter() - t,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "flash_attention_fwd_launches": flash.launches,
+    }
+    counts["serve_lm_smollm_32k"] = read_counts()
+    if flash.launches != cfg.n_layers or not torch.isfinite(logits).all():
+        raise AssertionError("serve_lm_smollm 32k: bad launches or logits")
+    del cache, logits, tokens
+
+    # the model in float32 with the same weights: the card (flash kernel)
+    # against the CPU (the plain path), one 256-token request
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    card = T.TransformerLM(model.tree(), cfg32).float()
+    host = T.TransformerLM(model.tree(), cfg32).to("cpu").float()
+    tokens = lm_batch(cfg, 1, 256, seed=0, step=2)["tokens"]
+    reset_counts()
+    got, _ = T.prefill(card, cfg32, tokens, 256)
+    torch.cuda.synchronize()
+    counts["serve_lm_f32_check"] = read_counts()
+    want, _ = T.prefill(host, cfg32, tokens, 256)
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    if not torch.allclose(got, want, rtol=1e-3, atol=1e-3) or not same_argmax:
+        raise AssertionError(f"serve_lm_smollm f32: card vs CPU max abs err "
+                             f"{err}, argmax equal {same_argmax}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    line["f32_card_vs_cpu"] = {
+        "tokens": 256, "max_abs_err": err, "tolerance": {"rtol": 1e-3,
+                                                          "atol": 1e-3},
+        "argmax_equal": same_argmax,
+        "top2_margin": float((top2[:, 0] - top2[:, 1]).min()),
+        "flash_attention_fwd_launches": counts["serve_lm_f32_check"][
+            "flash_attention_fwd"],
+    }
+    emit(line)
+    del model, card, host
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_private_bert4rec(dev, card, flash, fold, read_counts,
+                           reset_counts):
+    """Full-width BERT4Rec (random weights from seed 0) scoring 32 users
+    whose item histories are fetched by Sparse-PIR through PrivateEmbedding
+    (the config's private_lookup_d/da/theta), bit-equal to the plain
+    lookup. Returns the path's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PrivateEmbedding
+    from repro_torch.core.accounting import PrivacyBudget
+    from repro_torch.data import bert4rec_batch
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("bert4rec").CONFIG
+    model = R.bert4rec_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    users = 32
+    seq = torch.from_numpy(
+        bert4rec_batch(cfg, users, seed=0, step=0)["seq"]).to(dev)
+    budget = PrivacyBudget(epsilon_limit=1e9)
+    pe = PrivateEmbedding.create(
+        model.tree()["embed"], scheme="sparse", d=cfg.private_lookup_d,
+        d_a=cfg.private_lookup_da, theta=cfg.private_lookup_theta,
+        budget=budget)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    private = R.bert4rec_logits(model, cfg, seq,
+                                lookup_fn=lambda table, ids: pe.lookup(gen, ids))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    spent = budget.spent_epsilon
+    if flash.launches != cfg.n_blocks or fold.launches != cfg.private_lookup_d:
+        raise AssertionError(f"serve_private_bert4rec: launches {counts}")
+    plain = R.bert4rec_logits(model, cfg, seq)
+    err = max_abs_err(private.view(torch.int32), plain.view(torch.int32))
+    split = device_split(
+        lambda: R.bert4rec_logits(
+            model, cfg, seq, lookup_fn=lambda table, ids: pe.lookup(gen, ids)),
+        {"flash_attention_fwd": ["flash_fwd_kernel"],
+         "xor_fold": ["xor_fold"], "sort": ["sort", "Sort"],
+         "matmul": ["gemm", "Gemm", "nvjet", "cutlass", "xmma"]})
+    if err != 0 or private.shape != (users, R.bert4rec_vocab(cfg)):
+        raise AssertionError("serve_private_bert4rec: private logits differ "
+                             "from the plain-lookup logits")
+    emit({
+        "phase": "serve_private_bert4rec", "card": card, "config": cfg.name,
+        "embed_dim": cfg.embed_dim, "n_blocks": cfg.n_blocks,
+        "n_heads": cfg.n_heads, "seq_len": cfg.seq_len,
+        "items_table": [R.bert4rec_vocab(cfg), cfg.embed_dim],
+        "store_bytes": pe._store.nbytes, "users": users,
+        "lookups": users * cfg.seq_len, "scheme": "sparse",
+        "d": cfg.private_lookup_d, "d_a": cfg.private_lookup_da,
+        "theta": cfg.private_lookup_theta, "batch_s": batch_s,
+        "epsilon_per_lookup": pe.epsilon_per_lookup(),
+        "epsilon_spent": spent,
+        "private_equals_plain_bits": err == 0,
+        "max_memory_allocated": peak, "launches": counts,
+        "split_batch": split,
+    })
+    del model, pe, private, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -285,18 +667,25 @@ def main() -> int:
     from repro_torch.kernels.parity_matmul import (
         parity_matmul, parity_matmul_plain,
     )
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_plain,
+    )
     from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
     from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
     from repro_torch.serve import ShardedBackend
 
     t_script = time.perf_counter()
     dev = torch.device("cuda")
+    # float32 products in full float32 (the f32 checks hold 1e-5 and 1e-3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     wrappers = {
         "xor_fold": xor_fold, "gather_xor": gather_xor,
         "fused_gather_fold": fused_gather_fold,
         "parity_matmul": parity_matmul,
         "scatter_rows": scatter_rows,
         "fused_multi_gather_fold": fused_multi_gather_fold,
+        "flash_attention_fwd": flash_attention_fwd,
     }
 
     def reset_counts():
@@ -338,9 +727,25 @@ def main() -> int:
         "xor_fold", {"n": n, "W": w, "q": q, "density": 0.5},
         lambda: xor_fold(store.packed, mask),
         lambda: xor_fold_plain(store.packed, mask),
-        ((n * w * 4 + q * n + q * w * 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
+        fold_bound(store.packed, mask),
         "xor_fold.cu", "src/repro/kernels/xor_fold.py:79",
     ))
+    # the private BERT4Rec path's operands: 6400 queries over a 26 752-row
+    # store of 64 words; it rides along under "at_bert4rec"
+    bdb, bmask = bert4rec_fold_operands(dev)
+    at_bert4rec = check_kernel(
+        "xor_fold", {"n": bdb.shape[0], "W": bdb.shape[1],
+                     "q": bmask.shape[0], "mask_dtype": str(bmask.dtype),
+                     "density": int(torch.count_nonzero(bmask))
+                     / bmask.numel()},
+        lambda: xor_fold(bdb, bmask), lambda: xor_fold_plain(bdb, bmask),
+        fold_bound(bdb, bmask),
+        "xor_fold.cu", "src/repro/kernels/xor_fold.py:79", plain_iters=1)
+    rows[-1]["at_bert4rec"] = {
+        k: at_bert4rec[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")}
+    del bdb, bmask, at_bert4rec
+    torch.cuda.empty_cache()
 
     m = ops.sparse_index_budget(n, cfg.theta)
     smask = random_mask(rng, q, n, cfg.theta, dev)
@@ -576,11 +981,41 @@ def main() -> int:
                   "bound_by")}
     rows.append(multi_rows[0])
 
-    emit({"phase": "kernels", "checked": [
+    # flash_attention_fwd at the operands of its paths: (a) the LM prefill
+    # (4 requests x 9 heads, 4096 tokens, head dim 64, bf16, causal), (b)
+    # the same with gemma-2's 1024-token window, (c) BERT4Rec (32 users x 2
+    # heads, 200 items, head dim 32, f32, bidirectional), (d) the
+    # prefill_32k length (batch cut to 1; the plain version is held on 1 of
+    # the 9 rows: the full score matrix does not fit)
+    flash_sets = [
+        check_flash("a_lm_prefill", 4 * 9, 4096, 64, torch.bfloat16, True,
+                    None, dev, flash_attention_fwd, flash_attention_plain),
+        check_flash("b_lm_prefill_window_1024", 4 * 9, 4096, 64,
+                    torch.bfloat16, True, 1024, dev, flash_attention_fwd,
+                    flash_attention_plain),
+        check_flash("c_bert4rec", 32 * 2, 200, 32, torch.float32, False,
+                    None, dev, flash_attention_fwd, flash_attention_plain),
+        check_flash("d_lm_prefill_32k", 9, 32768, 64, torch.bfloat16, True,
+                    None, dev, flash_attention_fwd, flash_attention_plain,
+                    plain_rows=1, iters=3),
+    ]
+    flash_row = {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": CSRC + "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:111", "launches": 0,
+        **{k: flash_sets[0][k] for k in (
+            "shape", "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library")},
+        "operand_sets": flash_sets,
+    }
+    rows.append(flash_row)
+
+    emit({"phase": "kernels", "card": smi, "checked": [
         {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
-                           "library_ms", "max_abs_err", "at_gate",
+                           "library_ms", "max_abs_err", "at_bert4rec",
+                           "at_gate",
                            "at_full_width", "duplicates_last_write",
-                           "jagged")
+                           "jagged", "operand_sets")
          if k in r} for r in rows]})
 
     # fold vs parity(+pack_bits) across scheduler buckets, n cut, full width
@@ -727,6 +1162,14 @@ def main() -> int:
         red, query_batch=32), small, dev, rng, fused_multi_gather_fold,
         "sparse")
     by_path["serve_multi_reduced"] = read_counts()
+
+    # ------------------------------------- 9 the attention models: SmolLM
+    by_path.update(serve_lm_smollm(dev, smi, flash_attention_fwd,
+                                   read_counts, reset_counts))
+
+    # --------------------------------------------- 10 private BERT4Rec
+    by_path["serve_private_bert4rec"] = serve_private_bert4rec(
+        dev, smi, flash_attention_fwd, xor_fold, read_counts, reset_counts)
 
     # each kernel's count comes from the first path that runs it; every
     # path's own counts ride along

@@ -1,12 +1,17 @@
-"""The PIR workload's config dataclass (field names as in the reference
-package, so one config file can describe both packages)."""
+"""Config dataclasses of the port: the PIR workload's, the LM family's and
+the RecSys family's (field names, defaults and properties as in the
+reference package, so one config file can describe both packages).
+
+Each configuration module under ``repro_torch.configs`` defines ``CONFIG``
+(the full-scale config), ``SHAPES`` (its shape cells) and ``reduced()``
+(a test-sized config of the same family)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
-__all__ = ["PIRConfig", "ShapeSpec"]
+__all__ = ["LMConfig", "RecSysConfig", "PIRConfig", "ShapeSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +28,96 @@ class ShapeSpec:
     @staticmethod
     def make(name: str, kind: str, **params: int) -> "ShapeSpec":
         return ShapeSpec(name=name, kind=kind, params=tuple(sorted(params.items())))
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # gemma-2 style features
+    local_global: bool = False        # odd layers local, even layers global
+    window: int = 4096
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    # misc
+    rope_theta: float = 10000.0
+    dtype: str = "float32"
+    loss_chunk: int = 0               # 0 = unchunked xent
+    remat: bool = False
+    remat_policy: str = "nothing"     # nothing | dots (save matmul outputs)
+    # whether the arch is pure full attention (=> long_500k cell skipped)
+    full_attention_only: bool = True
+    # PIR integration (DESIGN.md §Arch-applicability; not ported yet)
+    private_vocab_lookup: bool = False
+
+    @property
+    def params_dense(self) -> int:
+        """Parameter count (for MODEL_FLOPS = 6·N·D roofline term)."""
+        attn = self.n_layers * self.d_model * self.head_dim * (
+            self.n_heads * 2 + self.n_kv_heads * 2
+        )
+        if self.moe:
+            mlp = self.n_layers * self.n_experts * 3 * self.d_model * self.d_ff
+            router = self.n_layers * self.d_model * self.n_experts
+            mlp += router
+        else:
+            mlp = self.n_layers * 3 * self.d_model * self.d_ff
+        embed = self.vocab * self.d_model  # tied
+        return attn + mlp + embed
+
+    @property
+    def params_active(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if not self.moe:
+            return self.params_dense
+        attn = self.n_layers * self.d_model * self.head_dim * (
+            self.n_heads * 2 + self.n_kv_heads * 2
+        )
+        mlp = self.n_layers * (
+            self.top_k * 3 * self.d_model * self.d_ff
+            + self.d_model * self.n_experts
+        )
+        return attn + mlp + self.vocab * self.d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class RecSysConfig:
+    name: str
+    model: str                        # dien | fm | dlrm | bert4rec
+    embed_dim: int
+    n_sparse: int = 0
+    n_dense: int = 0
+    vocab_per_field: int = 100_000
+    interaction: str = "dot"
+    # dlrm
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    # dien
+    seq_len: int = 0
+    gru_dim: int = 0
+    mlp_dims: Tuple[int, ...] = ()
+    # bert4rec
+    n_blocks: int = 0
+    n_heads: int = 0
+    n_items: int = 0
+    dtype: str = "float32"
+    # PIR integration: route sparse lookups through a scheme
+    # (repro_torch.core.private_embedding)
+    private_lookup_scheme: str = "plain"   # plain | chor | sparse | ...
+    private_lookup_theta: float = 0.25
+    private_lookup_d: int = 4
+    private_lookup_da: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,15 +1,23 @@
-"""State carried across packages: stores and wire payloads as numpy.
+"""State carried across packages: stores, wire payloads and model weights
+as numpy.
 
-Data takes the place of weights in this system. These functions take and
-return **numpy arrays only** (single-index and jagged multi-index wire
-batches alike), so this package never imports the reference
-package: a caller that holds the reference's store or ``Queries`` moves
-them through numpy, and both packages then compute on the same bits.
+Data takes the place of weights in the PIR system; the models beside it
+have weights too. These functions take and return **numpy arrays only**
+(single-index and jagged multi-index wire batches, and parameter trees as
+nested dicts and lists of arrays), so this package never imports the
+reference package: a caller that holds the reference's store, ``Queries``
+or parameter pytree moves them through numpy, and both packages then
+compute on the same bits.
+
+bfloat16 weights: numpy has no bfloat16 of its own. An array whose dtype
+is named ``bfloat16`` (what ``np.asarray`` of a JAX bf16 array gives) is
+read bit for bit; ``*_to_numpy`` gives bf16 tensors back as float32 (a
+widening that loses no bit).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +26,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.protocol import MultiQueries, Queries
 from repro_torch.db import packing
 from repro_torch.db.store import RecordStore
+from repro_torch.models import layers, recsys, transformer
 
 __all__ = [
     "store_from_numpy",
@@ -26,6 +35,10 @@ __all__ = [
     "queries_to_numpy",
     "multi_queries_from_numpy",
     "multi_queries_to_numpy",
+    "lm_params_from_numpy",
+    "lm_params_to_numpy",
+    "bert4rec_params_from_numpy",
+    "bert4rec_params_to_numpy",
 ]
 
 
@@ -143,3 +156,75 @@ def multi_queries_to_numpy(mq: MultiQueries) -> dict:
         "k_max": int(mq.k_max),
         "requests": int(mq.requests),
     }
+
+
+# ------------------------------------------------------------ model weights
+def _tensor_from_numpy(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(_owned(arr.view(np.uint16), np.uint16).view(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(_owned(arr, arr.dtype))
+    return t.to(device=device, dtype=dtype)
+
+
+def _tree_from_numpy(tree: Any, device: torch.device, dtype: torch.dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device, dtype) for v in tree]
+    return _tensor_from_numpy(tree, device, dtype)
+
+
+def _tree_to_numpy(tree: Any):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()
+
+
+def lm_params_from_numpy(
+    tree: dict, cfg, device: DeviceLike = None
+) -> "transformer.TransformerLM":
+    """The reference's ``init_lm`` pytree as numpy (``embed``, stacked
+    ``layers``, ``final_norm``) -> a :class:`TransformerLM` on ``device``
+    (``None``: the card), in the config's dtype."""
+    if np.shape(tree["embed"]) != (cfg.vocab, cfg.d_model):
+        raise ValueError(
+            f"embed is {np.shape(tree['embed'])}, the config wants "
+            f"{(cfg.vocab, cfg.d_model)}"
+        )
+    dev = resolve_device(device)
+    return transformer.TransformerLM(
+        _tree_from_numpy(tree, dev, transformer._dtype(cfg)), cfg
+    )
+
+
+def lm_params_to_numpy(params) -> dict:
+    """A :class:`TransformerLM` (or its tree) -> the reference's pytree
+    layout as numpy."""
+    return _tree_to_numpy(layers.as_tree(params))
+
+
+def bert4rec_params_from_numpy(
+    tree: dict, cfg, device: DeviceLike = None
+) -> "recsys.BERT4Rec":
+    """The reference's ``bert4rec_init`` pytree as numpy (``embed``,
+    ``pos``, the list ``blocks``, ``final_ln``) -> a :class:`BERT4Rec` on
+    ``device`` (``None``: the card), float32."""
+    if np.shape(tree["embed"]) != (recsys.bert4rec_vocab(cfg), cfg.embed_dim):
+        raise ValueError(f"embed is {np.shape(tree['embed'])}, not the "
+                         "config's vocab x embed_dim")
+    dev = resolve_device(device)
+    return recsys.BERT4Rec(_tree_from_numpy(tree, dev, torch.float32), cfg)
+
+
+def bert4rec_params_to_numpy(params) -> dict:
+    """A :class:`BERT4Rec` (or its tree) -> the reference's pytree layout
+    as numpy."""
+    return _tree_to_numpy(layers.as_tree(params))

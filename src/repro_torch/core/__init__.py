@@ -8,6 +8,7 @@ everything outside goes through the protocol (``build_scheme``/...) or the
 
 from repro_torch.core import accounting, chor, protocol, sparse
 from repro_torch.core.accounting import PrivacyBudget, epsilon_sparse
+from repro_torch.core.private_embedding import PrivateEmbedding
 from repro_torch.core.protocol import (
     Answers,
     ChorScheme,
@@ -30,6 +31,7 @@ __all__ = [
     "ChorScheme",
     "MultiQueries",
     "PrivacyBudget",
+    "PrivateEmbedding",
     "Queries",
     "SCHEMES",
     "Scheme",

@@ -10,8 +10,10 @@ bit-packed ([d, B, ceil(n/32)] words, the wire format) and as {0,1} masks
 on demand. Randomness comes from an explicit ``torch.Generator`` on the
 tensors' device.
 
-``server_answer`` is the *reference* server path (plain PyTorch). The
-production server paths live in :mod:`repro_torch.kernels`.
+``server_answer`` is the single-store server path of the staged schemes'
+``answer`` stage: the ``xor_fold`` kernel for a store on the card, its
+plain version for a store on the CPU. The planned production server paths
+live in :mod:`repro_torch.kernels.backend`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from repro_torch.db import packing
 from repro_torch.db.store import RecordStore
 from repro_torch.kernels._common import xor_reduce
-from repro_torch.kernels.xor_fold import xor_fold_plain
+from repro_torch.kernels.xor_fold import xor_fold
 
 __all__ = [
     "ChorPre",
@@ -114,11 +116,12 @@ def query_masks(q_packed: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def server_answer(db_packed: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Reference server: XOR-fold the selected packed records.
+    """Server: XOR-fold the selected packed records (the ``xor_fold``
+    kernel on the card, its plain version on the CPU).
 
     db_packed: [n, W] words; mask: [B, n] {0,1}; returns [B, W] words.
     """
-    return xor_fold_plain(db_packed, mask)
+    return xor_fold(db_packed, mask)
 
 
 def reconstruct(responses: torch.Tensor) -> torch.Tensor:

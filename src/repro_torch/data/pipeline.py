@@ -1,19 +1,25 @@
-"""Deterministic synthetic write traffic for a live PIR store.
+"""Deterministic synthetic data: write traffic for a live PIR store, LM
+token streams and BERT4Rec item sequences.
 
-A stateless function of (seed, step), generated on the host with numpy:
-replaying the same steps gives the same deltas, in this package and in
-the reference alike (both draw from the same numpy stream), so a replayed
-ingest stream is bit-identical and can be held against an independently
-rebuilt store.
+Every pipeline is a stateless function of (seed, step), generated on the
+host with numpy: replaying the same steps gives the same batch, in this
+package and in the reference alike (both draw from the same numpy
+stream), so a replayed ingest stream is bit-identical and can be held
+against an independently rebuilt store, and both packages see the same
+tokens and item histories. Batches stay numpy; the caller moves them to
+its device.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 
+from repro_torch.configs.base import LMConfig, RecSysConfig
 from repro_torch.db.live import Delta
 
-__all__ = ["pir_delta_batch"]
+__all__ = ["pir_delta_batch", "lm_batch", "bert4rec_batch"]
 
 
 def _rng(seed: int, step: int) -> np.random.Generator:
@@ -52,3 +58,25 @@ def pir_delta_batch(
     if deletes:
         out.append(Delta.delete(rng.integers(0, current_n, size=deletes)))
     return out
+
+
+def lm_batch(cfg: LMConfig, batch: int, seq_len: int, seed: int, step: int) -> Dict:
+    """Zipfian token stream (vocab-skewed like natural text)."""
+    rng = _rng(seed, step)
+    z = rng.zipf(1.3, size=(batch, seq_len)).astype(np.int64)
+    return {"tokens": (z % cfg.vocab).astype(np.int32)}
+
+
+def bert4rec_batch(cfg: RecSysConfig, batch: int, seed: int, step: int) -> Dict:
+    """Cloze-masked item sequences (15% positions masked)."""
+    rng = _rng(seed, step)
+    mask_tok = cfg.n_items + 1
+    items = rng.integers(1, cfg.n_items, size=(batch, cfg.seq_len), dtype=np.int32)
+    mask = rng.random((batch, cfg.seq_len)) < 0.15
+    mask[:, 0] |= ~mask.any(axis=1)  # ≥1 masked position per row
+    seq = np.where(mask, mask_tok, items).astype(np.int32)
+    return {
+        "seq": seq,
+        "labels": items,
+        "mask": mask.astype(np.int32),
+    }

@@ -35,6 +35,8 @@ __all__ = [
     "unpack_bytes_np",
     "words_to_numpy",
     "words_from_numpy",
+    "bitcast_f32_to_u32",
+    "bitcast_u32_to_f32",
     "bitplanes_from_packed",
     "packed_from_bitplanes",
 ]
@@ -111,6 +113,22 @@ def words_from_numpy(
     if not arr.flags.writeable:  # torch tensors cannot alias read-only memory
         arr = arr.copy()
     return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def bitcast_f32_to_u32(x: torch.Tensor) -> torch.Tensor:
+    """Reinterpret float32 as 32-bit words (exact bit transport through
+    XOR-PIR). The words come back as this package's word dtype, int32 —
+    the reference's uint32 bits, held signed (see the module docstring)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"bitcast_f32_to_u32 takes float32, got {x.dtype}")
+    return x.contiguous().view(WORD_DTYPE)
+
+
+def bitcast_u32_to_f32(x: torch.Tensor) -> torch.Tensor:
+    """Reinterpret 32-bit words (int32 here) as float32."""
+    if x.dtype != WORD_DTYPE:
+        raise TypeError(f"bitcast_u32_to_f32 takes {WORD_DTYPE} words, got {x.dtype}")
+    return x.contiguous().view(torch.float32)
 
 
 # rows unpacked at once by bitplanes_from_packed: bounds the 32-bit

@@ -62,11 +62,27 @@ class RecordStore:
             record_bits=raw.shape[1] * 8,
         )
 
+    @classmethod
+    def from_float_table(cls, table: torch.Tensor) -> "RecordStore":
+        """[n, dim] float32 table -> store on the table's device (bit-exact
+        transport via bitcast; shares the table's memory)."""
+        if table.dim() != 2:
+            raise ValueError(f"need a [n, dim] table, got {tuple(table.shape)}")
+        return cls(
+            packed=packing.bitcast_f32_to_u32(table),
+            record_bits=int(table.shape[1]) * 32,
+        )
+
     # -------------------------------------------------------------- readout
     def record_bytes(self, i: int) -> np.ndarray:
         nbytes = -(-self.record_bits // 8)
         row = packing.words_to_numpy(self.packed[i : i + 1])
         return packing.unpack_bytes_np(row, nbytes)[0]
+
+    def as_float_table(self) -> torch.Tensor:
+        if self.record_bits % 32:
+            raise ValueError("store was not built from a float table")
+        return packing.bitcast_u32_to_f32(self.packed)
 
     def bitplanes(self, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
         """[n, 32*W] {0,1} planes for the parity-matmul server path."""

@@ -3,12 +3,13 @@ optimizes): xor_fold (dense masked fold), parity_matmul (the fold as an
 integer product mod 2), gather_xor (Sparse-PIR: only the θ·n selected
 rows), fused_gather_fold (the same with the db slab in shared memory) and
 its jagged multi-index form fused_multi_gather_fold, plus scatter_rows,
-the write kernel of live-store ingest. Each module holds the wrapper that
-launches the CUDA kernel and the plain PyTorch version beside it; ops.py
-holds the standalone server paths,
-ref.py the plain versions under the reference's oracle names, and
-backend.py the execution-backend layer every consumer outside this
-package goes through."""
+the write kernel of live-store ingest, and flash_attention_fwd, the
+attention forward of the models (repro_torch.models). Each module holds
+the wrapper that launches the CUDA kernel and the plain PyTorch version
+beside it; ops.py holds the standalone server paths, ref.py the plain
+versions under the reference's oracle names, and backend.py the
+execution-backend layer every PIR consumer outside this package goes
+through."""
 
 from repro_torch.kernels import backend, ops, ref
 from repro_torch.kernels.backend import (
@@ -19,6 +20,7 @@ from repro_torch.kernels.backend import (
     registered_backends,
     scatter_update,
 )
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fused import (
     fused_block_w,
     fused_gather_fold,
@@ -34,6 +36,7 @@ __all__ = [
     "ExecutionPlan",
     "KernelPlanner",
     "backend",
+    "flash_attention_fwd",
     "fused_block_w",
     "fused_smem_budget",
     "get_backend",

@@ -36,6 +36,7 @@ SOURCES = (
     "fused_multi_gather_fold.cu",
     "parity_matmul.cu",
     "scatter_rows.cu",
+    "flash_attention.cu",
 )
 HEADERS = ("common.cuh", "fused_slab.cuh")
 NVCC_FLAGS = (
@@ -55,6 +56,9 @@ _SIGNATURES = {
     ),
     "pir_parity_matmul": (_P, _P, _P, _I, _I, _I, _P),
     "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pir_flash_attention_fwd": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,124 @@
+"""Flash-attention forward (online softmax) over the ``[B·H, S, D]`` layout.
+
+    out[b] = softmax(mask(q[b] k[b]ᵀ / √D)) v[b]
+
+with masks by absolute position from 0 for both q and k: ``kpos ≤ qpos``
+if ``causal``, ``kpos > qpos − window`` if ``window`` is set (gemma-2's
+local layers; ``window`` is at least 1). Scores, the softmax and the
+products run in f32 whatever the input type (float32 or bfloat16); the
+result comes back in q's type. Masked scores take the finite ``NEG_INF``.
+
+:func:`flash_attention_fwd` launches ``csrc/flash_attention.cu`` for
+tensors on the card (it replaces the reference package's TPU kernel
+``kernels/flash_attention.py::_kernel``; bound by operations, 4·d flops
+per unmasked (q, k) pair) and takes :func:`flash_attention_plain` only for
+tensors on the CPU. The kernel zero-fills the ragged edges of Sq and Sk in
+its tiles, as the reference zero-pads them. GQA's broadcast of K/V over
+the query heads happens in :func:`repro_torch.models.layers.gqa_attention`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._common import check_launch, require, stream_ptr
+
+__all__ = ["flash_attention_fwd", "flash_attention_plain"]
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+TILE_Q = 64  # q rows per block of the CUDA kernel
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_args(q, k, v, window) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(
+            f"need q [BH, Sq, D] and k, v [BH, Sk, D], got {tuple(q.shape)}, "
+            f"{tuple(k.shape)} and {tuple(v.shape)}"
+        )
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(
+            f"shapes disagree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}"
+        )
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version (the reference's oracle ``flash_attention_ref``):
+    einsum, mask, softmax, einsum, all in f32; the [BH, Sq, Sk] scores are
+    materialised."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    s = s / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,  # [BH, Sq, D]
+    k: torch.Tensor,  # [BH, Sk, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """q: [BH, Sq, D]; k, v: [BH, Sk, D], float32 or bfloat16 -> [BH, Sq, D]
+    in q's dtype.
+
+    The reference's ``block_q``/``block_k`` tuning arguments have no
+    counterpart: the CUDA kernel's tiles are fixed at ``TILE_Q`` × 64 (its
+    register and shared-memory layout)."""
+    _check_args(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    dev = q.device
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got {q.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        require(t, name, q.dtype, 3, dev)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    out = torch.empty_like(q)
+    if bh == 0 or sq == 0:
+        return out
+    if sk == 0 or d == 0:
+        raise ValueError("flash_attention_fwd needs at least one key and one column")
+    if bh * math.ceil(sq / TILE_Q) >= 2**31:
+        raise ValueError("flash_attention_fwd: more than 2**31 - 1 blocks")
+    # a window that no row can reach masks nothing (the global window of
+    # the LM is 1 << 30); the kernel takes -1 for none
+    win = -1 if window is None or int(window) >= sq else int(window)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.pir_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            bh, sq, sk, d, int(bool(causal)), win, _DTYPE_CODES[q.dtype],
+            stream_ptr(dev),
+        )
+    flash_attention_fwd.launches += 1
+    check_launch(code, "flash_attention_fwd")
+    return out
+
+
+flash_attention_fwd.launches = 0

@@ -1,0 +1,324 @@
+"""Shared neural-net layers of the port (functional, on explicit devices).
+
+Parameters are nested dicts of tensors in the reference package's layout
+(``{"w": [d_in, d_out]}``, ``{"scale": [d]}``, ...), so the same weights,
+carried across as numpy by :mod:`repro_torch.convert`, go through both
+packages. A model holds them in a :class:`ParamTree` (an ``nn.Module``);
+every layer is an ``*_init(gen, ..., device) -> params`` plus an
+``apply(params, x, ...)`` pair. Initialisation draws from a
+``torch.Generator`` (its own numbers, not the reference's).
+
+Attention on a CUDA tensor goes through the hand-written flash kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention_fwd`); on a
+CPU tensor it is the reference's plain ``_attn_core``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+__all__ = [
+    "ParamTree",
+    "as_tree",
+    "dense_init",
+    "dense",
+    "rmsnorm_init",
+    "rmsnorm",
+    "layernorm_init",
+    "layernorm",
+    "embedding_init",
+    "rope",
+    "softcap",
+    "gqa_attention",
+    "decode_attention",
+    "swiglu_init",
+    "swiglu",
+    "gelu_mlp_init",
+    "gelu_mlp",
+    "ATTN_CHUNK_Q",
+]
+
+Tree = Union[Dict[str, "Tree"], list, torch.Tensor]
+
+
+# ----------------------------------------------------------- parameters
+class ParamTree(nn.Module):
+    """An ``nn.Module`` holding a nested dict (or list) of tensors as
+    parameters (no gradient: the port serves), under the same names.
+    :meth:`tree` hands back the nested structure of the same tensors."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        self._kind = "list" if isinstance(tree, (list, tuple)) else "dict"
+        items = enumerate(tree) if self._kind == "list" else tree.items()
+        self._keys = []
+        for key, val in items:
+            name = f"i{key}" if self._kind == "list" else key
+            self._keys.append(name)
+            if isinstance(val, torch.Tensor):
+                self.register_parameter(
+                    name, nn.Parameter(val.detach(), requires_grad=False)
+                )
+            else:
+                self.add_module(name, ParamTree(val))
+
+    def tree(self) -> Tree:
+        vals = []
+        for name in self._keys:
+            child = getattr(self, name)
+            vals.append(child.tree() if isinstance(child, ParamTree) else child)
+        if self._kind == "list":
+            return vals
+        return dict(zip(self._keys, vals))
+
+
+def as_tree(params) -> Tree:
+    """A :class:`ParamTree` (or a model built on one) -> its nested dict;
+    a nested dict passes through."""
+    return params.tree() if isinstance(params, ParamTree) else params
+
+
+def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+# ----------------------------------------------------------------- dense
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, device: DeviceLike = None):
+    dev = resolve_device(device)
+    scale = 1.0 / math.sqrt(d_in)
+    return {"w": (_normal(gen, (d_in, d_out)) * scale).to(dev, dtype)}
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["w"].to(x.dtype)
+
+
+# ------------------------------------------------------------------ norm
+def rmsnorm_init(d: int, dtype=torch.float32, device: DeviceLike = None):
+    # gemma-style (1 + scale)
+    return {"scale": torch.zeros((d,), dtype=dtype, device=resolve_device(device))}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device: DeviceLike = None):
+    dev = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=dtype, device=dev),
+            "bias": torch.zeros((d,), dtype=dtype, device=dev)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------- embedding
+def embedding_init(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32, device: DeviceLike = None):
+    dev = resolve_device(device)
+    return {"table": (_normal(gen, (vocab, d)) * 0.02).to(dev, dtype)}
+
+
+# ------------------------------------------------------------------ rope
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] (or [S]) int."""
+    d = x.shape[-1]
+    half = d // 2
+    expo = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
+                     expo)
+    ang = positions.to(x.device)[..., None].float() * freq  # [B, S, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0.0:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def _repeat_kv(kv: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, S, Hkv, D] -> [B, S, Hkv*groups, D] (GQA broadcast)."""
+    b, s, h, d = kv.shape
+    kv = kv[:, :, :, None, :].expand(b, s, h, groups, d)
+    return kv.reshape(b, s, h * groups, d)
+
+
+def _attn_core(q, k, v, qpos, kpos, causal, window, attn_softcap, dh):
+    """Masked softmax attention over pre-broadcast K/V. q: [B,Sq,Hq,D].
+
+    The reference's plain path: the [Sq, Sk] scores, the mask constant and
+    the softmax stay in the input dtype."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
+        math.sqrt(dh), dtype=q.dtype, device=q.device
+    )
+    scores = softcap(scores, attn_softcap)
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    neg = -1e30 if q.dtype == torch.float32 else -3e38
+    scores = scores.masked_fill(~mask[None, None], neg)
+    probs = torch.softmax(scores, dim=-1)  # stays in q.dtype end to end
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+ATTN_CHUNK_Q = 2048  # query blocking threshold/size of the plain path
+
+
+def _flash(q, k, v, causal, window) -> torch.Tensor:
+    """[B, Sq, H, D] (K/V already broadcast) through the flash kernel's
+    [B·H, S, D] layout and back."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qf = q.permute(0, 2, 1, 3).reshape(b * h, sq, d).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(b * h, sk, d).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(b * h, sk, d).contiguous()
+    out = flash_attention_fwd(qf, kf, vf, causal=causal, window=window)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+def gqa_attention(
+    q: torch.Tensor,              # [B, Sq, Hq, D]
+    k: torch.Tensor,              # [B, Skv, Hkv, D]
+    v: torch.Tensor,              # [B, Skv, Hkv, D]
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    attn_softcap: float = 0.0,
+    q_offset: Union[int, torch.Tensor] = 0,
+) -> torch.Tensor:
+    """GQA attention with an optional local window. Returns [B, Sq, Hq, D].
+
+    On a CUDA tensor: K/V broadcast over the query groups, then the flash
+    kernel (f32 softmax inside, the result in q's dtype). The kernel has
+    neither a logit softcap nor a query offset, so ``attn_softcap > 0`` or
+    ``q_offset != 0`` raise ``NotImplementedError`` there (ROADMAP.md
+    Queue A item 13); there is no fallback to the plain path.
+
+    On a CPU tensor: the reference's plain path, with queries longer than
+    ``ATTN_CHUNK_Q`` (and a multiple of it) taken in chunks so the
+    [Sq, Skv] scores never materialise whole. ``q_offset`` shifts query
+    positions (prefill = 0)."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    k = _repeat_kv(k, hq // hkv)
+    v = _repeat_kv(v, hq // hkv)
+    window = None if window is None else int(window)
+    if q.device.type != "cpu":
+        if attn_softcap > 0.0:
+            raise NotImplementedError(
+                "gqa_attention on the card has no logit softcap (the flash "
+                "kernel has none; gemma-2 waits): ROADMAP.md Queue A item 13"
+            )
+        if int(q_offset) != 0:
+            raise NotImplementedError(
+                "gqa_attention on the card takes no query offset (the flash "
+                "kernel has none): ROADMAP.md Queue A item 13"
+            )
+        return _flash(q, k, v, causal, window)
+
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    if sq > ATTN_CHUNK_Q and sq % ATTN_CHUNK_Q == 0:
+        outs = [
+            _attn_core(q[:, lo : lo + ATTN_CHUNK_Q], k, v,
+                       qpos[lo : lo + ATTN_CHUNK_Q], kpos, causal, window,
+                       attn_softcap, dh)
+            for lo in range(0, sq, ATTN_CHUNK_Q)
+        ]
+        return torch.cat(outs, dim=1)
+    return _attn_core(q, k, v, qpos, kpos, causal, window, attn_softcap, dh)
+
+
+def decode_attention(
+    q: torch.Tensor,              # [B, 1, Hq, D]
+    k_cache: torch.Tensor,        # [B, Smax, Hkv, D]
+    v_cache: torch.Tensor,
+    length,                       # number of valid cache entries
+    *,
+    window: Optional[int] = None,
+    attn_softcap: float = 0.0,
+    kv_seq_axes: tuple = (),
+) -> torch.Tensor:
+    """One-token decode against a KV cache: a plain masked softmax over the
+    whole cache, on either device (the reference's single-device branch;
+    it has no Pallas kernel). The sequence-parallel flash-decode the
+    reference takes when ``kv_seq_axes`` names mesh axes is not ported
+    (ROADMAP.md Queue A item 11)."""
+    if kv_seq_axes:
+        raise NotImplementedError(
+            "flash_decode over a sequence-sharded cache is not ported: "
+            "ROADMAP.md Queue A item 11"
+        )
+    b, _, hq, dh = q.shape
+    hkv = k_cache.shape[2]
+    k = _repeat_kv(k_cache, hq // hkv)
+    v = _repeat_kv(v_cache, hq // hkv)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+    scores = softcap(scores, attn_softcap)
+    kpos = torch.arange(k.shape[1], device=q.device)[None, None, None, :]
+    mask = kpos < length
+    if window is not None:
+        mask &= kpos > length - 1 - int(window)  # only the last `window` tokens
+    scores = torch.where(mask, scores.float(), -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# ------------------------------------------------------------------- mlp
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
+                device: DeviceLike = None):
+    return {
+        "wi": dense_init(gen, d, d_ff, dtype, device),
+        "wg": dense_init(gen, d, d_ff, dtype, device),
+        "wo": dense_init(gen, d_ff, d, dtype, device),
+    }
+
+
+def swiglu(params, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(dense(params["wg"], x)) * dense(params["wi"], x)
+    return dense(params["wo"], h)
+
+
+def gelu_mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
+                  device: DeviceLike = None):
+    return {
+        f"l{i}": dense_init(gen, dims[i], dims[i + 1], dtype, device)
+        for i in range(len(dims) - 1)
+    }
+
+
+def gelu_mlp(params, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
+    n = len(params)
+    for i in range(n):
+        x = dense(params[f"l{i}"], x)
+        if i < n - 1 or final_act:
+            x = F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+    return x

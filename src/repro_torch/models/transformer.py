@@ -1,0 +1,232 @@
+"""Decoder-only transformer LM of the port: the serving half (prefill and
+decode) for dense configs, GQA/RoPE/RMSNorm/SwiGLU, tied embeddings.
+
+Parameters are held by a :class:`TransformerLM` (an ``nn.Module``) in the
+reference's stacked layout: ``embed`` [V, D], ``layers`` with every leaf
+[L, ...], ``final_norm``. The layer loop is a Python loop over that stack
+(the reference's ``lax.scan``). Prefill attention goes through
+:func:`repro_torch.models.layers.gqa_attention`, so on the card every layer
+launches the flash kernel once; decode attends over the cache with the
+plain masked softmax, as the reference's single-device branch does.
+
+API (the reference's; ``params`` is a :class:`TransformerLM` or its
+nested dict):
+    init_lm(gen, cfg, device=None)              -> TransformerLM
+    prefill(params, cfg, tokens, max_len)       -> (last_logits, cache)
+    decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
+
+Not ported yet (ROADMAP.md Queue A item 13): MoE configs (``cfg.moe``
+raises), ``train_loss`` and training, the sequence-sharded decode.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.configs.base import LMConfig
+from repro_torch.dist.collectives import sharded_vocab_lookup
+from repro_torch.models import layers as L
+
+__all__ = ["KVCache", "TransformerLM", "init_lm", "prefill", "decode_step"]
+
+_BIG_WINDOW = 1 << 30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [L, B, Smax, Hkv, Dh]
+    v: torch.Tensor
+
+
+class TransformerLM(L.ParamTree):
+    """The LM's parameters in the reference's stacked layout, with its
+    config. ``tree()`` is the reference's parameter pytree."""
+
+    def __init__(self, tree: Dict, cfg: LMConfig):
+        super().__init__(tree)
+        self.cfg = cfg
+
+
+def _dtype(cfg: LMConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md Queue A "
+            "item 13)"
+        )
+
+
+def _layer_windows(cfg: LMConfig) -> torch.Tensor:
+    """Per-layer attention window (big = global). Gemma-2: odd layers local."""
+    if not cfg.local_global:
+        return torch.full((cfg.n_layers,), _BIG_WINDOW, dtype=torch.int32)
+    idx = torch.arange(cfg.n_layers)
+    return torch.where(idx % 2 == 0, cfg.window, _BIG_WINDOW).to(torch.int32)
+
+
+def _stack(trees):
+    """A list of equal nested dicts -> one nested dict of stacked leaves."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    return {k: _stack([t[k] for t in trees]) for k in first}
+
+
+def _layer(stacked, i: int):
+    """Layer ``i``'s parameters out of the stacked [L, ...] tree (views)."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked[i]
+    return {k: _layer(v, i) for k, v in stacked.items()}
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+def init_lm(gen: torch.Generator, cfg: LMConfig,
+            device: DeviceLike = None) -> TransformerLM:
+    """Random weights from ``gen`` on ``device`` (``None``: the card)."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    embed = L.embedding_init(gen, cfg.vocab, cfg.d_model, dt, dev)["table"]
+
+    def layer_init():
+        return {
+            "ln1": L.rmsnorm_init(cfg.d_model, dt, dev),
+            "ln2": L.rmsnorm_init(cfg.d_model, dt, dev),
+            "wq": L.dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim, dt, dev),
+            "wk": L.dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim, dt, dev),
+            "wv": L.dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim, dt, dev),
+            "wo": L.dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model, dt, dev),
+            "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, dev),
+        }
+
+    stacked = _stack([layer_init() for _ in range(cfg.n_layers)])
+    return TransformerLM(
+        {"embed": embed, "layers": stacked,
+         "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev)},
+        cfg,
+    )
+
+
+# --------------------------------------------------------------------------
+# shared attention sub-block
+# --------------------------------------------------------------------------
+def _qkv(p, cfg: LMConfig, x):
+    b, s, _ = x.shape
+    q = L.dense(p["wq"], x).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = L.dense(p["wk"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.dense(p["wv"], x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _attn_full(p, cfg: LMConfig, x, window, positions):
+    """Prefill attention over the full (causal) sequence."""
+    q, k, v = _qkv(p, cfg, x)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    out = L.gqa_attention(
+        q, k, v, causal=True, window=window, attn_softcap=cfg.attn_softcap,
+    )
+    b, s, _, _ = out.shape
+    return L.dense(p["wo"], out.reshape(b, s, -1)), k, v
+
+
+def _tokens(tokens, device: torch.device) -> torch.Tensor:
+    if isinstance(tokens, np.ndarray):
+        tokens = torch.from_numpy(np.ascontiguousarray(tokens))
+    return torch.as_tensor(tokens).to(device)
+
+
+def _embed_tokens(embed: torch.Tensor, cfg: LMConfig, tokens: torch.Tensor):
+    x = sharded_vocab_lookup(embed, tokens)
+    # gemma-style scale, rounded to the activations' dtype first
+    return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# serving
+# --------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(params, cfg: LMConfig, tokens, max_len: int):
+    """tokens: [B, S] ints on the parameters' device (numpy is moved
+    there); returns (last-position logits [B, V], KVCache with
+    ``max_len`` positions, the first S filled)."""
+    _dense_only(cfg)
+    tree = L.as_tree(params)
+    embed = tree["embed"]
+    dev = embed.device
+    tokens = _tokens(tokens, dev)
+    b, s = tokens.shape
+    if max_len < s:
+        raise ValueError(f"max_len {max_len} < prompt length {s}")
+    dt = _dtype(cfg)
+    x = _embed_tokens(embed, cfg, tokens)
+    windows = _layer_windows(cfg)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=dt, device=dev)
+    vc = torch.zeros(shape, dtype=dt, device=dev)
+    for i in range(cfg.n_layers):
+        p = _layer(tree["layers"], i)
+        y = L.rmsnorm(p["ln1"], x)
+        h, k, v = _attn_full(p, cfg, y, int(windows[i]), positions)
+        x = x + h
+        y = L.rmsnorm(p["ln2"], x)
+        x = x + L.swiglu(p["mlp"], y)
+        kc[i, :, :s] = k.to(dt)
+        vc[i, :, :s] = v.to(dt)
+    x = L.rmsnorm(tree["final_norm"], x)
+    last = x[:, -1]
+    logits = last @ embed.T.to(last.dtype)
+    logits = L.softcap(logits, cfg.final_softcap)
+    return logits, KVCache(k=kc, v=vc)
+
+
+@torch.no_grad()
+def decode_step(params, cfg: LMConfig, cache: KVCache, token, pos):
+    """token: [B, 1]; pos: int, the tokens already in the cache. Returns
+    (logits [B, V], cache).
+
+    The new position's K/V are written into ``cache`` **in place** (the
+    serving idiom: no copy of the whole cache per token) and the same
+    cache is returned; its values equal the reference's functional
+    update."""
+    _dense_only(cfg)
+    tree = L.as_tree(params)
+    embed = tree["embed"]
+    dev = embed.device
+    token = _tokens(token, dev)
+    b = token.shape[0]
+    pos = int(pos)
+    if not 0 <= pos < cache.k.shape[2]:
+        raise ValueError(f"pos {pos} outside a cache of {cache.k.shape[2]}")
+    x = _embed_tokens(embed, cfg, token)
+    windows = _layer_windows(cfg)
+    positions = torch.full((b, 1), pos, device=dev)
+    for i in range(cfg.n_layers):
+        p = _layer(tree["layers"], i)
+        y = L.rmsnorm(p["ln1"], x)
+        q, k, v = _qkv(p, cfg, y)
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+        kc, vc = cache.k[i], cache.v[i]
+        kc[:, pos] = k[:, 0].to(kc.dtype)
+        vc[:, pos] = v[:, 0].to(vc.dtype)
+        out = L.decode_attention(
+            q, kc, vc, pos + 1, window=int(windows[i]),
+            attn_softcap=cfg.attn_softcap,
+        )
+        x = x + L.dense(p["wo"], out.reshape(b, 1, -1))
+        y2 = L.rmsnorm(p["ln2"], x)
+        x = x + L.swiglu(p["mlp"], y2)
+    x = L.rmsnorm(tree["final_norm"], x)
+    logits = x[:, 0] @ embed.T.to(x.dtype)
+    logits = L.softcap(logits, cfg.final_softcap)
+    return logits, cache

@@ -1,5 +1,5 @@
 """The CUDA kernels of repro_torch against their plain PyTorch versions,
-on the card. Every test here needs a CUDA device and ``nvcc``; on a host
+on the card, and the paths that run them. Every test here needs a CUDA device and ``nvcc``; on a host
 without them the ``cuda_device`` fixture skips. Run on a GPU host with
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,6 +11,10 @@ import torch
 
 from repro_torch.db import make_synthetic_store
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (
+    flash_attention_fwd,
+    flash_attention_plain,
+)
 from repro_torch.kernels.fused import (
     fused_gather_fold,
     fused_gather_fold_plain,
@@ -326,3 +330,160 @@ def test_live_store_and_multi_pipeline_on_the_card(cuda_device):
         want = np.stack([live.snapshot().record_bytes(i) for i in lst])
         assert (out[f"c{c}"] == want).all()
     assert pipe.compact_step() == 2
+
+
+# ------------------------------------------------------- flash_attention_fwd
+FLASH_CASES = [
+    # (bh, sq, sk, d, causal, window): the reference's sweep, then the head
+    # dims a later slice needs, a window smaller than one 64-row tile, a
+    # window with its first tiles empty, and cross lengths
+    (2, 64, 64, 16, True, None),
+    (3, 100, 100, 32, True, None),
+    (2, 64, 64, 16, True, 24),
+    (1, 128, 128, 64, False, None),
+    (2, 96, 160, 16, False, None),
+    (1, 257, 129, 8, True, None),
+    (2, 300, 300, 128, True, None),
+    (1, 200, 200, 256, False, None),
+    (2, 130, 130, 256, True, 24),
+    (3, 500, 500, 64, True, 100),
+    (2, 160, 96, 32, False, None),
+    (4, 200, 200, 32, False, None),
+    (1, 1, 70, 64, False, None),
+    (2, 77, 77, 48, True, 1),
+]
+# bf16: both sides accumulate in f32 and round once to bf16, so they differ
+# by at most one bf16 ulp (2^-8 to 2^-7 of the value) plus f32 noise
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+
+
+def _flash_case(bh, sq, sk, d, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn((bh, s, d), generator=g).to(device=device, dtype=dtype)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, bh, sq, sk, d,
+                                              causal, window, dtype):
+    q, k, v = _flash_case(bh, sq, sk, d, dtype, cuda_device, seed=sq + d)
+    launches = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert flash_attention_fwd.launches == launches + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [None, 63, 64, 65, 1024])
+def test_flash_attention_tile_skips_in_f32(cuda_device, window):
+    """The key tiles skipped after the diagonal and before the window, at
+    the LM's head dim over 32 q tiles: bf16-valued operands in f32, so a
+    tile lost or taken twice cannot hide under the output's rounding."""
+    q, k, v = (t.float() for t in _flash_case(
+        2, 2048, 2048, 64, torch.bfloat16, cuda_device, seed=5))
+    got = flash_attention_fwd(q, k, v, causal=True, window=window)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+def test_flash_attention_global_window_is_no_window(cuda_device):
+    q, k, v = _flash_case(2, 100, 100, 64, torch.bfloat16, cuda_device)
+    _same(flash_attention_fwd(q, k, v, window=1 << 30), flash_attention_fwd(q, k, v))
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _flash_case(1, 8, 8, 8, torch.float16, cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q, k, v)
+    q, k, v = _flash_case(1, 8, 8, 300, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v)
+    q, k, v = _flash_case(1, 8, 8, 8, torch.float32, cuda_device)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+def test_a_failed_build_raises_and_never_falls_back(cuda_device, monkeypatch):
+    from repro_torch.kernels import _build
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_source_hash", lambda: "0000-no-such-build")
+    monkeypatch.setattr(_build, "_find_nvcc", no_nvcc)
+    q, k, v = _flash_case(1, 8, 8, 8, torch.float32, cuda_device)
+    launches = flash_attention_fwd.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.launches == launches
+
+
+def test_gqa_attention_on_the_card_launches_the_kernel(cuda_device):
+    from repro_torch.models import layers as L
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 40, 6, 32), generator=g).to(cuda_device)
+    k = torch.randn((2, 40, 2, 32), generator=g).to(cuda_device)
+    v = torch.randn((2, 40, 2, 32), generator=g).to(cuda_device)
+    for kw in (dict(causal=True), dict(causal=True, window=9),
+               dict(causal=False)):
+        launches = flash_attention_fwd.launches
+        got = L.gqa_attention(q, k, v, **kw)
+        assert flash_attention_fwd.launches == launches + 1
+        want = L.gqa_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    # bf16: the kernel keeps an f32 softmax where the plain path rounds the
+    # scores and probabilities to bf16, so the two differ by rounding only
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = L.gqa_attention(qb, kb, vb)
+    want = L.gqa_attention(qb.cpu(), kb.cpu(), vb.cpu())
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        L.gqa_attention(q, k, v, attn_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="offset"):
+        L.gqa_attention(q, k, v, q_offset=3)
+
+
+def test_reduced_models_on_the_card_match_the_cpu(cuda_device):
+    """SmolLM reduced (prefill + decode) and private BERT4Rec reduced on
+    the card by default, against the same weights on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PrivateEmbedding
+    from repro_torch.data import bert4rec_batch, lm_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("smollm-135m").reduced()
+    lm = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    lm_cpu = T.TransformerLM({**lm.tree()}, cfg).to("cpu")
+    tokens = lm_batch(cfg, 2, 100, seed=0, step=0)["tokens"]
+    launches = flash_attention_fwd.launches
+    logits, cache = T.prefill(lm, cfg, tokens, 104)
+    assert flash_attention_fwd.launches == launches + cfg.n_layers
+    want, want_cache = T.prefill(lm_cpu, cfg, tokens, 104)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    tok = logits.argmax(-1, keepdim=True)
+    got2, _ = T.decode_step(lm, cfg, cache, tok, 100)
+    want2, _ = T.decode_step(lm_cpu, cfg, want_cache, tok.cpu(), 100)
+    torch.testing.assert_close(got2.cpu(), want2, rtol=1e-4, atol=1e-4)
+
+    rcfg = get_arch("bert4rec").reduced()
+    model = R.bert4rec_init(torch.Generator(device="cuda").manual_seed(1), rcfg)
+    seq = bert4rec_batch(rcfg, 4, seed=0, step=0)["seq"]
+    plain = R.bert4rec_logits(model, rcfg, seq)
+    pe = PrivateEmbedding.create(model.tree()["embed"], scheme="sparse", d=4,
+                                 d_a=2, theta=0.25)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    folds = xor_fold.launches
+    launches = flash_attention_fwd.launches
+    private = R.bert4rec_logits(model, rcfg, seq,
+                                lookup_fn=lambda t, ids: pe.lookup(gen, ids))
+    assert xor_fold.launches == folds + 4
+    assert flash_attention_fwd.launches == launches + rcfg.n_blocks
+    _same(private, plain)
