@@ -10,12 +10,13 @@ that takes update, delete and append deltas, and multi-index requests.
 Then the attention models at full width: SmolLM-135M serving (prefill and
 greedy decode of 4 x 4096 tokens, one 32 768-token prefill, the f32 model
 on the card against the CPU) and BERT4Rec scoring 32 users whose item
-histories are fetched by Sparse-PIR. Builds the seven CUDA kernels from
-the sources in this tree, holds each against its plain PyTorch version on
-the card (bit for bit for the six GF(2) kernels, PIR is exact; within the
-reference's float tolerance for flash attention), times them with CUDA
-events, and checks that the answers are right (stored or pinned records;
-finite logits that agree with the CPU; private logits equal to the plain
+histories are fetched by Sparse-PIR. Builds the CUDA kernels from the
+eight sources in this tree (flash attention has two: bf16 at head dims 64
+and 128 on the tensor cores, everything else in f32), holds each against
+its plain PyTorch version on the card (bit for bit for the six GF(2)
+kernels, PIR is exact; within the reference's float tolerance for flash
+attention), times them with CUDA events, and checks that the answers are
+right (stored or pinned records; finite logits that agree with the CPU; private logits equal to the plain
 ones bit for bit) and that each path went through its kernels (launch
 counters, set to 0 before a path and read after it). One JSON line per
 phase; the last line is the verdict.
@@ -52,6 +53,9 @@ FLASH_TOL = {torch.float32: {"rtol": 1e-5, "atol": 1e-5},
              torch.bfloat16: {"rtol": 8e-3, "atol": 1e-3}}
 
 CSRC = "src/repro_torch/kernels/csrc/"
+
+FLASH_SOURCES = {"flash_fwd_kernel": "flash_attention.cu",
+                 "flash_wgmma_kernel": "flash_attention_wgmma.cu"}
 
 
 def emit(obj) -> None:
@@ -397,8 +401,11 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
                                      window=window)
 
     def held(q_, k_, v_, tol):
+        before = dict(flash_attention_fwd.kernel_launches)
         got = flash_attention_fwd(q_, k_, v_, causal=causal,
                                   window=window)[rows]
+        ran = [n for n, c in flash_attention_fwd.kernel_launches.items()
+               if c != before[n]]
         want = flash_attention_plain(q_[rows], k_[rows], v_[rows],
                                      causal=causal, window=window)
         torch.cuda.synchronize()
@@ -410,16 +417,20 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
         if not torch.isfinite(got).all():
             raise AssertionError(f"flash_attention_fwd {label}: non-finite "
                                  "output")
-        return err
+        return err, ran[0]
 
     tol = FLASH_TOL[dtype]
-    err = held(q, k, v, tol)
+    err, kernel_name = held(q, k, v, tol)
     f32_check = None
     if dtype != torch.float32:
+        # the same operands in f32 go to flash_attention.cu: this checks
+        # that kernel's tile loop without the output's rounding, not the
+        # tensor-core kernel's (the bf16 check above and the card tests
+        # hold that one)
         f32_tol = FLASH_TOL[torch.float32]
-        f32_check = {"max_abs_err": held(*(t.float() for t in (q, k, v)),
-                                         f32_tol),
-                     "tolerance": f32_tol}
+        f32_err, f32_kernel = held(*(t.float() for t in (q, k, v)), f32_tol)
+        f32_check = {"max_abs_err": f32_err, "tolerance": f32_tol,
+                     "kernel": f32_kernel}
     # the same function as one PyTorch call: causal without a window as
     # is_causal, a window as a boolean band mask
     q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
@@ -444,6 +455,7 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
         "shape": {"bh": bh, "sq": sq, "sk": sq, "d": d,
                   "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                   "window": window, "plain_rows": plain_rows or bh},
+        "kernel": kernel_name, "source": CSRC + FLASH_SOURCES[kernel_name],
         "max_abs_err": err, "tolerance": tol,
         "same_operands_in_f32": f32_check,
         "ms": time_ms(kernel, iters=iters),
@@ -483,6 +495,7 @@ def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     prefill_launches = flash.launches
+    prefill_by_kernel = dict(flash.kernel_launches)
     tok = logits.argmax(-1, keepdim=True)
     out = [tok]
     t = time.perf_counter()
@@ -497,6 +510,11 @@ def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
         raise AssertionError(f"serve_lm_smollm: {prefill_launches} flash "
                              f"launches in the prefill, {flash.launches} in "
                              f"all, expected {cfg.n_layers}")
+    if prefill_by_kernel != {"flash_fwd_kernel": 0,
+                             "flash_wgmma_kernel": cfg.n_layers}:
+        raise AssertionError(f"serve_lm_smollm: the prefill's flash launches "
+                             f"by kernel are {prefill_by_kernel}, expected "
+                             f"all {cfg.n_layers} on flash_wgmma_kernel")
     generated = torch.cat(out, dim=1)
     if not (torch.isfinite(logits).all() and generated.min() >= 0
             and generated.max() < cfg.vocab
@@ -513,12 +531,14 @@ def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
         "decode_tokens_per_s": batch * new / decode_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "flash_attention_fwd_launches_per_prefill": prefill_launches,
+        "flash_kernel_launches_per_prefill": prefill_by_kernel,
         "launches": counts["serve_lm_smollm"],
     }
     # where the device time goes (measurement runs after the counts are
     # read): one more prefill, and one decode step that rewrites the last
     # position
-    groups = {"flash_attention_fwd": ["flash_fwd_kernel"],
+    groups = {"flash_wgmma_kernel": ["flash_wgmma_kernel"],
+              "flash_fwd_kernel": ["flash_fwd_kernel"],
               "matmul": ["gemm", "Gemm", "nvjet", "cutlass", "xmma"]}
     line["split_prefill"] = device_split(
         lambda: T.prefill(model, cfg, tokens, prompt + new), groups)
@@ -541,10 +561,14 @@ def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
         "tokens": long, "prefill_s": time.perf_counter() - t,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "flash_attention_fwd_launches": flash.launches,
+        "flash_kernel_launches": dict(flash.kernel_launches),
     }
     counts["serve_lm_smollm_32k"] = read_counts()
-    if flash.launches != cfg.n_layers or not torch.isfinite(logits).all():
-        raise AssertionError("serve_lm_smollm 32k: bad launches or logits")
+    if (flash.launches != cfg.n_layers
+            or flash.kernel_launches["flash_wgmma_kernel"] != cfg.n_layers
+            or not torch.isfinite(logits).all()):
+        raise AssertionError("serve_lm_smollm 32k: bad launches or logits "
+                             f"({dict(flash.kernel_launches)})")
     del cache, logits, tokens
 
     # the model in float32 with the same weights: the card (flash kernel)
@@ -572,6 +596,8 @@ def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
         "top2_margin": float((top2[:, 0] - top2[:, 1]).min()),
         "flash_attention_fwd_launches": counts["serve_lm_f32_check"][
             "flash_attention_fwd"],
+        "flash_kernel_launches": {
+            n: counts["serve_lm_f32_check"][n] for n in FLASH_SOURCES},
     }
     emit(line)
     del model, card, host
@@ -622,7 +648,8 @@ def serve_private_bert4rec(dev, card, flash, fold, read_counts,
     split = device_split(
         lambda: R.bert4rec_logits(
             model, cfg, seq, lookup_fn=lambda table, ids: pe.lookup(gen, ids)),
-        {"flash_attention_fwd": ["flash_fwd_kernel"],
+        {"flash_fwd_kernel": ["flash_fwd_kernel"],
+         "flash_wgmma_kernel": ["flash_wgmma_kernel"],
          "xor_fold": ["xor_fold"], "sort": ["sort", "Sort"],
          "matmul": ["gemm", "Gemm", "nvjet", "cutlass", "xmma"]})
     if err != 0 or private.shape != (users, R.bert4rec_vocab(cfg)):
@@ -691,9 +718,13 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
+        for name in flash_attention_fwd.kernel_launches:
+            flash_attention_fwd.kernel_launches[name] = 0
 
     def read_counts():
-        return {k: f_.launches for k, f_ in wrappers.items()}
+        # each wrapper's count, and flash_attention_fwd's by kernel
+        return {**{k: f_.launches for k, f_ in wrappers.items()},
+                **flash_attention_fwd.kernel_launches}
 
     # ------------------------------------------------------------ 1 device
     smi = subprocess.run(
@@ -999,13 +1030,19 @@ def main() -> int:
                     None, dev, flash_attention_fwd, flash_attention_plain,
                     plain_rows=1, iters=3),
     ]
+    for fs in flash_sets:
+        want = "flash_fwd_kernel" if fs["label"] == "c_bert4rec" else (
+            "flash_wgmma_kernel")
+        if fs["kernel"] != want:
+            raise AssertionError(f"flash {fs['label']} ran {fs['kernel']}, "
+                                 f"expected {want}")
     flash_row = {
         "name": "flash_attention_fwd", "route": "cuda",
-        "source": CSRC + "flash_attention.cu",
+        "source": flash_sets[0]["source"],
         "replaces": "src/repro/kernels/flash_attention.py:111", "launches": 0,
         **{k: flash_sets[0][k] for k in (
-            "shape", "max_abs_err", "tolerance", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library")},
+            "shape", "kernel", "max_abs_err", "tolerance", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library")},
         "operand_sets": flash_sets,
     }
     rows.append(flash_row)

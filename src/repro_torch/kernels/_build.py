@@ -37,6 +37,7 @@ SOURCES = (
     "parity_matmul.cu",
     "scatter_rows.cu",
     "flash_attention.cu",
+    "flash_attention_wgmma.cu",
 )
 HEADERS = ("common.cuh", "fused_slab.cuh")
 NVCC_FLAGS = (
@@ -58,6 +59,9 @@ _SIGNATURES = {
     "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pir_flash_attention_fwd": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "pir_flash_attention_wgmma": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
 
@@ -102,6 +106,9 @@ _PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 _PTXAS_SPILL = re.compile(
     r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
 )
+# what ptxas says beyond the counts: warnings, and its advisories (e.g.
+# wgmma instructions serialized for a register hazard)
+_PTXAS_NOTE = re.compile(r"warning|Performance Loss", re.IGNORECASE)
 
 
 def _parse_ptxas(source: str, text: str) -> List[Dict[str, object]]:
@@ -144,12 +151,15 @@ def _build(lib_path: pathlib.Path) -> None:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     kernels: List[Dict[str, object]] = []
+    notes: List[str] = []
     failures = []
     for name, obj, proc in procs:  # wait for every child before raising
         text, _ = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"{name} (exit {proc.returncode}):\n{text}")
         kernels.extend(_parse_ptxas(name, text))
+        notes.extend(f"{name}: {line.strip()}" for line in text.splitlines()
+                     if _PTXAS_NOTE.search(line))
     if failures:
         raise RuntimeError("nvcc failed for " + "\n".join(failures))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
@@ -163,7 +173,7 @@ def _build(lib_path: pathlib.Path) -> None:
     os.replace(tmp, lib_path)
     _report.update(
         built=True, seconds=time.perf_counter() - t0, nvcc=nvcc,
-        kernels=kernels,
+        kernels=kernels, notes=notes,
     )
 
 
@@ -175,7 +185,7 @@ def library() -> ctypes.CDLL:
             return _lib
         lib_path = _build_dir() / f"librepro_torch_kernels_{_source_hash()}.so"
         _report.update(library=str(lib_path), built=False, seconds=0.0,
-                       kernels=[])
+                       kernels=[], notes=[])
         if not lib_path.is_file():
             _build(lib_path)
         lib = ctypes.CDLL(str(lib_path))
@@ -189,6 +199,7 @@ def library() -> ctypes.CDLL:
 
 def build_report() -> Dict[str, object]:
     """What the last :func:`library` call did: the library's path, whether
-    it compiled (and the seconds that took) or reused a build, and what
-    ``ptxas -v`` said of each kernel (registers, shared memory, spills)."""
+    it compiled (and the seconds that took) or reused a build, what
+    ``ptxas -v`` said of each kernel (registers, shared memory, spills),
+    and the compilers' warnings and advisories (``notes``)."""
     return dict(_report)

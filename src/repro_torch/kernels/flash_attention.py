@@ -8,13 +8,19 @@ local layers; ``window`` is at least 1). Scores, the softmax and the
 products run in f32 whatever the input type (float32 or bfloat16); the
 result comes back in q's type. Masked scores take the finite ``NEG_INF``.
 
-:func:`flash_attention_fwd` launches ``csrc/flash_attention.cu`` for
-tensors on the card (it replaces the reference package's TPU kernel
-``kernels/flash_attention.py::_kernel``; bound by operations, 4·d flops
-per unmasked (q, k) pair) and takes :func:`flash_attention_plain` only for
-tensors on the CPU. The kernel zero-fills the ragged edges of Sq and Sk in
-its tiles, as the reference zero-pads them. GQA's broadcast of K/V over
-the query heads happens in :func:`repro_torch.models.layers.gqa_attention`.
+:func:`flash_attention_fwd` launches one of two hand-written CUDA kernels
+for tensors on the card, chosen by operand type (:func:`_kernel_for`):
+bfloat16 at a head dim of 64 or 128 goes to ``csrc/flash_attention_wgmma.cu``
+(Hopper's tensor cores: wgmma fed by TMA; P·V as hi + lo bf16 halves of P,
+so P keeps about 16 mantissa bits), everything else (float32, the
+other head dims up to 256) to ``csrc/flash_attention.cu`` (f32 on the CUDA
+cores). Both replace the reference package's TPU kernel
+``kernels/flash_attention.py::_kernel``; the function is bound by
+operations, 4·d flops per unmasked (q, k) pair. It takes
+:func:`flash_attention_plain` only for tensors on the CPU. The kernels
+zero-fill the ragged edges of Sq and Sk in their tiles, as the reference
+zero-pads them. GQA's broadcast of K/V over the query heads happens in
+:func:`repro_torch.models.layers.gqa_attention`.
 """
 
 from __future__ import annotations
@@ -31,8 +37,22 @@ __all__ = ["flash_attention_fwd", "flash_attention_plain"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-TILE_Q = 64  # q rows per block of the CUDA kernel
+WGMMA_HEAD_DIMS = (64, 128)
+# the two kernels by their CUDA names (what a profiler shows), with the
+# q rows of one block of each
+SIMT_KERNEL, WGMMA_KERNEL = "flash_fwd_kernel", "flash_wgmma_kernel"
+TILE_Q = {SIMT_KERNEL: 64, WGMMA_KERNEL: 128}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel_for(dtype: torch.dtype, d: int) -> str:
+    """Which kernel takes operands of this type and head dim: bfloat16 at
+    d = 64 or 128 goes to the tensor cores (``flash_attention_wgmma.cu``),
+    everything else to ``flash_attention.cu``. A choice by operand type,
+    not a fallback: either kernel raises when it fails."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return WGMMA_KERNEL
+    return SIMT_KERNEL
 
 
 def _check_args(q, k, v, window) -> None:
@@ -85,8 +105,9 @@ def flash_attention_fwd(
     in q's dtype.
 
     The reference's ``block_q``/``block_k`` tuning arguments have no
-    counterpart: the CUDA kernel's tiles are fixed at ``TILE_Q`` × 64 (its
-    register and shared-memory layout)."""
+    counterpart: each CUDA kernel's tiles are fixed by its register and
+    shared-memory layout (``TILE_Q`` q rows a block). ``launches`` counts
+    every launch, ``kernel_launches`` each kernel's."""
     _check_args(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -104,21 +125,30 @@ def flash_attention_fwd(
         return out
     if sk == 0 or d == 0:
         raise ValueError("flash_attention_fwd needs at least one key and one column")
-    if bh * math.ceil(sq / TILE_Q) >= 2**31:
+    kernel = _kernel_for(q.dtype, d)
+    if bh * math.ceil(sq / TILE_Q[kernel]) >= 2**31:
         raise ValueError("flash_attention_fwd: more than 2**31 - 1 blocks")
+    if kernel == WGMMA_KERNEL and any(
+            t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd: the TMA loads of bf16 "
+                         "operands need 16-byte aligned tensors")
     # a window that no row can reach masks nothing (the global window of
-    # the LM is 1 << 30); the kernel takes -1 for none
+    # the LM is 1 << 30); the kernels take -1 for none
     win = -1 if window is None or int(window) >= sq else int(window)
     lib = _build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            bh, sq, sk, d, int(bool(causal)), win)
     with torch.cuda.device(dev):
-        code = lib.pir_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, sq, sk, d, int(bool(causal)), win, _DTYPE_CODES[q.dtype],
-            stream_ptr(dev),
-        )
+        if kernel == WGMMA_KERNEL:
+            code = lib.pir_flash_attention_wgmma(*args, stream_ptr(dev))
+        else:
+            code = lib.pir_flash_attention_fwd(
+                *args, _DTYPE_CODES[q.dtype], stream_ptr(dev))
     flash_attention_fwd.launches += 1
-    check_launch(code, "flash_attention_fwd")
+    flash_attention_fwd.kernel_launches[kernel] += 1
+    check_launch(code, f"flash_attention_fwd ({kernel})")
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.kernel_launches = {SIMT_KERNEL: 0, WGMMA_KERNEL: 0}

@@ -390,6 +390,28 @@ def test_flash_attention_tile_skips_in_f32(cuda_device, window):
     torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
 
 
+def test_f32_kernel_counts_padded_keys_on_rows_the_mask_empties(cuda_device):
+    """A known difference of flash_attention.cu from the plain version
+    (ROADMAP Queue C), pinned so that any change to it shows. With Sq > Sk
+    and a window, rows q >= Sk - 1 + window keep no key: the plain version
+    averages the Sk keys there, while the kernel, like the reference's TPU
+    kernel, gives the zero-padded keys of its last 64-key tile the same
+    finite -1e30, so they count in l and the row averages over
+    ceil(Sk / 64) * 64 keys. Every other row agrees at the f32 tolerance."""
+    sq, sk, window = 500, 300, 63
+    q, k, v = _flash_case(2, sq, sk, 64, torch.float32, cuda_device, seed=9)
+    got = flash_attention_fwd(q, k, v, causal=True, window=window)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    empty = sk - 1 + window
+    tol = FLASH_TOL[torch.float32]
+    torch.testing.assert_close(got[:, :empty], want[:, :empty], **tol)
+    padded = -(-sk // 64) * 64
+    torch.testing.assert_close(got[:, empty:], want[:, empty:] * sk / padded,
+                               **tol)
+    assert not torch.allclose(got[:, empty:], want[:, empty:], **tol)
+
+
 def test_flash_attention_global_window_is_no_window(cuda_device):
     q, k, v = _flash_case(2, 100, 100, 64, torch.bfloat16, cuda_device)
     _same(flash_attention_fwd(q, k, v, window=1 << 30), flash_attention_fwd(q, k, v))
@@ -421,6 +443,89 @@ def test_a_failed_build_raises_and_never_falls_back(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         flash_attention_fwd(q, k, v)
     assert flash_attention_fwd.launches == launches
+
+
+# the tensor-core kernel (bf16, d 64 / 128): lengths off the 128-row q and
+# 64/128-key tiles, Sq != Sk both ways, windows around the tile edges
+WGMMA_LENGTHS = [(1, 70), (70, 1), (129, 129), (300, 500), (500, 300),
+                 (70, 129), (500, 500)]
+WGMMA_WINDOWS = [None, 1, 63, 64, 65, 127, 128, 129, 1024]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", WGMMA_LENGTHS)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", WGMMA_WINDOWS)
+def test_wgmma_flash_kernel_matches_plain(cuda_device, d, sq, sk, causal,
+                                          window):
+    bh = 36 if sq == sk == 129 else 3
+    q, k, v = _flash_case(bh, sq, sk, d, torch.bfloat16, cuda_device,
+                          seed=sq + 7 * sk + d)
+    before = dict(flash_attention_fwd.kernel_launches)
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert flash_attention_fwd.kernel_launches["flash_wgmma_kernel"] == (
+        before["flash_wgmma_kernel"] + 1)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, d)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
+def test_the_lm_operands_go_through_the_wgmma_kernel(cuda_device):
+    """bf16 at d 64 (SmolLM's heads) launches the tensor-core kernel; the
+    same operands in f32, and bf16 at d 32, launch the f32 kernel."""
+    q, k, v = _flash_case(9, 256, 256, 64, torch.bfloat16, cuda_device)
+    for args, kernel in (((q, k, v), "flash_wgmma_kernel"),
+                         (tuple(t.float() for t in (q, k, v)),
+                          "flash_fwd_kernel"),
+                         (tuple(t[..., :32].contiguous() for t in (q, k, v)),
+                          "flash_fwd_kernel")):
+        before = dict(flash_attention_fwd.kernel_launches)
+        launches = flash_attention_fwd.launches
+        flash_attention_fwd(*args)
+        torch.cuda.synchronize()
+        after = flash_attention_fwd.kernel_launches
+        assert flash_attention_fwd.launches == launches + 1
+        assert {n: after[n] - before[n] for n in after} == {
+            n: int(n == kernel) for n in after}
+
+
+def test_the_wgmma_kernel_refuses_operands_off_16_bytes(cuda_device):
+    # TMA reads from 16-byte boundaries: a contiguous view that starts one
+    # bf16 element into its buffer is refused, not read wrong
+    q, k, v = _flash_case(1, 64, 64, 64, torch.bfloat16, cuda_device)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    launches = flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(shifted, k, v)
+    assert flash_attention_fwd.launches == launches
+
+
+def test_gqa_attention_at_the_lms_head_dim_in_bf16(cuda_device):
+    """gqa_attention at head dim 64 in bf16 (9 query / 3 kv heads) goes
+    through the tensor-core kernel and agrees with the CPU plain path,
+    which keeps scores and probabilities in bf16 (hence 2e-2)."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((2, 300, 9, 64), generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    k, v = (torch.randn((2, 300, 3, 64), generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+            for _ in range(2))
+    for kw in (dict(causal=True), dict(causal=True, window=100),
+               dict(causal=False)):
+        before = flash_attention_fwd.kernel_launches["flash_wgmma_kernel"]
+        got = L.gqa_attention(q, k, v, **kw)
+        assert flash_attention_fwd.kernel_launches["flash_wgmma_kernel"] == (
+            before + 1)
+        want = L.gqa_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
 
 
 def test_gqa_attention_on_the_card_launches_the_kernel(cuda_device):

@@ -18,6 +18,7 @@ from repro.kernels.flash_attention import flash_attention_fwd as jax_flash
 from repro_torch.kernels import flash_attention_fwd as exported
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
+    _kernel_for,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -101,6 +102,31 @@ def test_wrapper_on_the_cpu_takes_the_plain_version_and_counts_nothing():
     got = flash_attention_fwd(q, k, v, causal=True)
     assert flash_attention_fwd.launches == before
     assert torch.equal(got, flash_attention_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 64, "flash_wgmma_kernel"),
+    (torch.bfloat16, 128, "flash_wgmma_kernel"),
+    (torch.float32, 64, "flash_fwd_kernel"),
+    (torch.float32, 128, "flash_fwd_kernel"),
+    (torch.float32, 32, "flash_fwd_kernel"),
+    (torch.bfloat16, 8, "flash_fwd_kernel"),
+    (torch.bfloat16, 48, "flash_fwd_kernel"),
+    (torch.bfloat16, 256, "flash_fwd_kernel"),
+])
+def test_bf16_at_head_dims_64_and_128_goes_to_the_tensor_cores(dtype, d,
+                                                               kernel):
+    # a choice by operand type: the f32 BERT4Rec path and the other head
+    # dims stay on the f32 kernel
+    assert _kernel_for(dtype, d) == kernel
+
+
+def test_the_per_kernel_counters_stay_still_on_the_cpu():
+    q, k, v = _torch(*_case(2, 64, 64, 64), dtype=torch.bfloat16)
+    before = dict(flash_attention_fwd.kernel_launches)
+    assert set(before) == {"flash_fwd_kernel", "flash_wgmma_kernel"}
+    flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.kernel_launches == before
 
 
 def test_a_window_no_row_can_reach_masks_nothing():
