@@ -5,9 +5,13 @@
 
 Drives the port's paths through the serving pipeline at the size of the
 paper's own workload (10^6 records of 1536 bytes, d = 100 databases,
-Sparse-PIR at θ = 0.25 and Chor): one private lookup, serving a live store
-that takes update, delete and append deltas, and multi-index requests.
-Then the attention models at full width: SmolLM-135M serving (prefill and
+Sparse-PIR at θ = 0.25 and Chor): one private lookup, Chor in buckets of
+128 on the planner's own fold/parity choice (the parity path on the int8
+tensor cores), serving a live store that takes update, delete and append
+deltas, and multi-index requests. Between the kernel checks and the paths,
+the fold is timed against the parity path across scheduler buckets at n
+cut to 65 536 and at the full 10^6 (phase ``crossover``). Then the
+attention models at full width: SmolLM-135M serving (prefill and
 greedy decode of 4 x 4096 tokens, one 32 768-token prefill, the f32 model
 on the card against the CPU) and BERT4Rec scoring 32 users whose item
 histories are fetched by Sparse-PIR. Builds the CUDA kernels from the
@@ -16,10 +20,10 @@ and 128 on the tensor cores, everything else in f32), holds each against
 its plain PyTorch version on the card (bit for bit for the six GF(2)
 kernels, PIR is exact; within the reference's float tolerance for flash
 attention), times them with CUDA events, and checks that the answers are
-right (stored or pinned records; finite logits that agree with the CPU; private logits equal to the plain
-ones bit for bit) and that each path went through its kernels (launch
-counters, set to 0 before a path and read after it). One JSON line per
-phase; the last line is the verdict.
+right (stored or pinned records; finite logits that agree with the CPU;
+private logits equal to the plain ones bit for bit) and that each path
+went through its kernels (launch counters, set to 0 before a path and read
+after it). One JSON line per phase; the last line is the verdict.
 
 Needs a CUDA device and ``nvcc``; exits non-zero without printing a verdict
 when there is no device. Imports only ``repro_torch``.
@@ -28,7 +32,9 @@ when there is no device. Imports only ``repro_torch``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -378,6 +384,249 @@ def fold_bound(db, mask):
             "operations" if ops_s > bytes_s else "bytes")
 
 
+def parity_bound(q, n, b, out_bytes):
+    """parity_matmul's bound: 2·q·n·B operations at the int8 tensor-core
+    peak, against the mask, the planes and the output moved once."""
+    ops_s = 2.0 * q * n * b / INT8_OPS_PER_S
+    bytes_s = (q * n + n * b + out_bytes) / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s > bytes_s else "bytes")
+
+
+def check_parity(pmask, planes, planes_rows, extra, iters, plain_iters,
+                 fp32_library):
+    """parity_matmul.cu's two forms on one operand set, each against its
+    plain version (tolerance 0), with the planes in the serving path's
+    layout (``planes``: the [n, B] view of a [B, n] tensor) and in the
+    reference's (``planes_rows``: [n, B], which the kernel transposes on
+    the way), timed beside the plain version and two PyTorch products that
+    the port never calls: ``torch.matmul`` in fp32 (exact here) and
+    ``torch._int_mm`` (cuBLAS int8 -> int32), both without the mod 2. The
+    row's ``ms`` is the packed form on the path's layout."""
+    from repro_torch.db import packing
+    from repro_torch.kernels.parity_matmul import (
+        parity_matmul, parity_matmul_packed, parity_matmul_packed_plain,
+        parity_matmul_plain,
+    )
+
+    (q, n), b = pmask.shape, planes.shape[1]
+    words = -(-b // 32)
+    want = parity_matmul_plain(pmask, planes_rows)
+    want_words = packing.pack_bits(want)
+    errs = {}
+    for layout, pl in (("n_contiguous", planes), ("rows", planes_rows)):
+        errs[layout] = {
+            "uint8": max_abs_err(parity_matmul(pmask, pl), want),
+            "packed": max_abs_err(parity_matmul_packed(pmask, pl),
+                                  want_words)}
+    torch.cuda.synchronize()
+    del want, want_words
+    if any(e for v in errs.values() for e in v.values()):
+        raise AssertionError(f"parity_matmul q={q} n={n} B={b}: kernel "
+                             f"differs from the plain version: {errs}")
+    library_ms, library = None, "torch.matmul fp32: not timed, the fp32 " \
+        "planes would not fit beside the uint8 ones"
+    if fp32_library:
+        a32, b32 = pmask.float(), planes_rows.float()
+        library_ms = time_ms(lambda: torch.matmul(a32, b32), iters=3)
+        library = "torch.matmul fp32"
+        del a32, b32
+        torch.cuda.empty_cache()
+    a8, b8 = pmask.view(torch.int8), planes.view(torch.int8)
+    try:
+        int8_ms, int8_note = time_ms(lambda: torch._int_mm(a8, b8),
+                                     iters=3), "torch._int_mm"
+    except RuntimeError as e:  # a yardstick PyTorch may refuse: say why
+        int8_ms, int8_note = None, str(e).splitlines()[0]
+    bound_ms, bound_by = parity_bound(q, n, b, q * words * 4)
+    u8_bound_ms, u8_bound_by = parity_bound(q, n, b, q * b)
+    # the card's own time for one call (torch.profiler): the kernel, and
+    # the output's zeroing where the shape splits n
+    calls = 10
+    split = device_split(
+        lambda: [parity_matmul_packed(pmask, planes) for _ in range(calls)],
+        {"kernel": ["parity_kernel"], "memset": ["emset"]})
+    return {
+        "name": "parity_matmul", "counter": "parity_matmul_packed",
+        "route": "cuda", "source": CSRC + "parity_matmul.cu",
+        "replaces": "src/repro/kernels/parity_matmul.py:93",
+        "shape": {"q": q, "n": n, "B": b, "output": "packed words",
+                  "planes": "n_contiguous", **extra},
+        "launches": 0, "max_abs_err": 0, "errors": errs, "tolerance": 0,
+        "ms": time_ms(lambda: parity_matmul_packed(pmask, planes),
+                      iters=iters),
+        "device_ms": {k: split["ms"][k] / calls for k in ("kernel",
+                                                          "memset")},
+        "plain_ms": time_ms(
+            lambda: parity_matmul_packed_plain(pmask, planes), warmup=1,
+            iters=plain_iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "library": library,
+        "library_ms_int8": int8_ms, "library_int8": int8_note,
+        "uint8_form": {
+            "ms": time_ms(lambda: parity_matmul(pmask, planes), iters=iters),
+            "bound_ms": u8_bound_ms, "bound_by": u8_bound_by},
+        # the reference's [n, B] layout: the kernel transposes each tile
+        "rows_layout": {
+            "ms": time_ms(lambda: parity_matmul_packed(pmask, planes_rows),
+                          iters=iters),
+            "uint8_ms": time_ms(lambda: parity_matmul(pmask, planes_rows),
+                                iters=iters)},
+    }
+
+
+def tensor_core_sass(lib_path, name):
+    """Tensor-core instructions in the SASS of the built library's kernels
+    whose name holds ``name`` (``cuobjdump -sass``): {kernel: {mnemonic:
+    count}}, e.g. IGMMA for an integer wgmma."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build._find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    found, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if name in m.group(1) else None
+            if fn:
+                found[fn] = {}
+            continue
+        m = re.search(r"\b([IH]GMMA|[IH]MMA)\b", line)
+        if fn and m:
+            found[fn][m.group(1)] = found[fn].get(m.group(1), 0) + 1
+    return found
+
+
+def crossover(db, planes, buckets, rng, dev, configured):
+    """The fold against the parity path (the packed kernel, the planes as
+    the planner holds them) on the same random masks at each scheduler
+    bucket; the measured crossover is the smallest bucket at which parity
+    was faster. The parity path on the reference's [n, B] planes, which the
+    kernel transposes on the way, rides along."""
+    from repro_torch.kernels import ops
+
+    planes_rows = planes.contiguous()
+    cross = []
+    for bucket in buckets:
+        bm = random_mask(rng, bucket, db.shape[0], 0.5, dev)
+        it = 5 if bucket <= 128 else 2
+        cross.append({
+            "bucket": bucket,
+            "fold_ms": time_ms(lambda: ops.server_answer_fold(db, bm),
+                               warmup=1, iters=it),
+            "parity_ms": time_ms(
+                lambda: ops.server_answer_parity(planes, bm), warmup=1,
+                iters=it),
+            "parity_rows_layout_ms": time_ms(
+                lambda: ops.server_answer_parity(planes_rows, bm),
+                warmup=1, iters=it),
+        })
+        del bm
+    del planes_rows
+    wins = [c["bucket"] for c in cross if c["parity_ms"] < c["fold_ms"]]
+    return {"n": db.shape[0], "B": planes.shape[1], "buckets": cross,
+            "measured_crossover": min(wins) if wins else None,
+            "configured_crossover": configured}
+
+
+def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
+                       ShardedBackend, never, read_counts, reset_counts):
+    """CT-scale Chor (n = 10^6 x 1536 B, d = 100) in buckets of 128: two
+    flushes with the planner's own unforced fold/parity choice, two more
+    forced to parity (parity_min_batch=128) if it chose fold, then one
+    flush of the same traffic forced to fold as the comparison. Every
+    record is checked. Returns the phase's launch counts (the comparison
+    flush and the per-server timings come after they are read)."""
+    chor = dataclasses.replace(cfg, scheme="chor", query_batch=128)
+    batch = 128
+
+    def run(label, flushes, parity_min_batch):
+        kw = {}
+        if parity_min_batch is not None:
+            kw["backend"] = ShardedBackend(
+                store, backend=chor.backend,
+                parity_min_batch=parity_min_batch, device=dev)
+        pipe = pir_ct.make_serving_pipeline(chor, store=store, device=dev,
+                                            seed=8, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = {k: w.launches for k, w in wrappers.items()}
+        times = []
+        for _ in range(flushes):
+            picks = rng.integers(0, store.n, size=batch)
+            for c, i in enumerate(picks):
+                if not pipe.submit(f"client-{c}", int(i)):
+                    raise AssertionError("budget refused a query")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pipe.flush()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            for c, i in enumerate(picks):
+                if not np.array_equal(out[f"client-{c}"],
+                                      store.record_bytes(int(i))):
+                    raise AssertionError(f"serve_chor_ct_b128 {label}: "
+                                         f"wrong record {int(i)}")
+        (plan,) = pipe.backend.planner._plans.values()
+        counts = dict(pipe.backend.path_counts)
+        if counts[plan.path] != cfg.d * flushes:
+            raise AssertionError(f"serve_chor_ct_b128 {label}: {counts}")
+        return pipe, {
+            "run": label, "parity_min_batch": parity_min_batch,
+            "path": plan.path, "exec_plan": plan.describe(),
+            "path_counts": counts, "flushes": flushes, "flush_s": times,
+            "lookups_per_s": batch / times[-1],
+            "launches": {k: w.launches - before[k]
+                         for k, w in wrappers.items()
+                         if w.launches != before[k]},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_allocated_before": resident,
+        }
+
+    def answer_ms(pipe, line):
+        # one server's answer to one planned batch (CUDA events)
+        for c, i in enumerate(rng.integers(0, store.n, size=batch)):
+            pipe.submit(f"client-{c}", int(i))
+        planned = pipe.plan_requests(pipe.take_batch())
+        mask0 = planned.routed.payload[0]
+        line["answer_ms_per_server"] = time_ms(
+            lambda: planned.exec_plan(mask0), iters=5)
+
+    reset_counts()
+    pipes, runs = [], []
+    pipe, line = run("unforced", 2, None)
+    pipes.append(pipe)
+    runs.append(line)
+    if line["path"] != "parity":
+        pipe, line = run("forced_parity", 2, batch)
+        pipes.append(pipe)
+        runs.append(line)
+    counts = read_counts()
+    if counts["parity_matmul_packed"] != 2 * cfg.d:
+        raise AssertionError(f"serve_chor_ct_b128: {counts}")
+    for pipe, line in zip(pipes, runs):
+        answer_ms(pipe, line)
+    # a pipeline's planner and its plans refer to each other: free the
+    # 12.29 GB of planes now, not at the collector's leisure
+    del pipes, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe, line = run("forced_fold", 1, never)
+    answer_ms(pipe, line)
+    runs.append(line)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_chor_ct_b128", "scheme": "chor", "n": store.n,
+          "record_bytes": cfg.record_bytes, "d": cfg.d, "batch": batch,
+          "planner_choice": runs[0]["path"],
+          "forced_parity_too": runs[0]["path"] != "parity", "runs": runs,
+          "parity_launches": counts["parity_matmul_packed"]})
+    return counts
+
+
 def check_flash(label, bh, sq, d, dtype, causal, window, dev,
                 flash_attention_fwd, flash_attention_plain, plain_rows=None,
                 iters=10):
@@ -692,7 +941,7 @@ def main() -> int:
         gather_xor, gather_xor_plain, indices_from_mask,
     )
     from repro_torch.kernels.parity_matmul import (
-        parity_matmul, parity_matmul_plain,
+        parity_matmul, parity_matmul_packed,
     )
     from repro_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_plain,
@@ -710,6 +959,7 @@ def main() -> int:
         "xor_fold": xor_fold, "gather_xor": gather_xor,
         "fused_gather_fold": fused_gather_fold,
         "parity_matmul": parity_matmul,
+        "parity_matmul_packed": parity_matmul_packed,
         "scatter_rows": scatter_rows,
         "fused_multi_gather_fold": fused_multi_gather_fold,
         "flash_attention_fwd": flash_attention_fwd,
@@ -857,43 +1107,53 @@ def main() -> int:
     rows.append(fused_rows[0])
 
     # parity: the shape the main path gives it (the reduced store, one
-    # bucket of 128), and the full 12288 bit columns with n cut so one
-    # launch takes milliseconds (at n = 10^6 the product is 3.1e15
-    # operations)
-    def parity_bound(q_, n_, b_):
-        ops_s = 2.0 * q_ * n_ * b_ / INT8_OPS_PER_S
-        bytes_s = (q_ * n_ + n_ * b_ + q_ * b_) / HBM_BYTES_PER_S
-        return (max(ops_s, bytes_s) * 1e3,
-                "operations" if ops_s > bytes_s else "bytes")
-
+    # bucket of 128), the full 12 288 bit columns with n cut to 65 536, and
+    # the whole CT store (12.29 GB of planes, built once: the crossover
+    # below reads them too, then they are freed)
     n_cut, qp = 65536, 128
     cut_db = store.packed[:n_cut].contiguous()
+    cut_planes = packing.bitplanes_from_packed(cut_db)
+    full_planes = packing.bitplanes_from_packed(store.packed)
     parity_rows = []
-    for pdb, extra in ((small.packed, {}), (cut_db, {"n_cut_from": n})):
-        planes = packing.bitplanes_from_packed(pdb)
-        pn, nb = planes.shape
-        pmask = random_mask(rng, qp, pn, 0.5, dev)
-        a32, b32 = pmask.float(), planes.float()
-        parity_rows.append(check_kernel(
-            "parity_matmul", {"q": qp, "n": pn, "B": nb, **extra},
-            lambda: parity_matmul(pmask, planes),
-            lambda: parity_matmul_plain(pmask, planes),
-            parity_bound(qp, pn, nb),
-            "parity_matmul.cu", "src/repro/kernels/parity_matmul.py:93",
-            library_fn=lambda: torch.matmul(a32, b32),
-            iters=50 if pn < n_cut else 5,
-        ))
-    # the row of the kernel is the main path's shape; the full width rides
-    # along under "at_full_width" (planes, pmask: the full-width operands)
-    parity_rows[0]["at_full_width"] = {
-        k: parity_rows[1][k]
-        for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                  "bound_by", "library_ms")}
+    for pdb, planes, extra, iters in (
+            (small.packed, packing.bitplanes_from_packed(small.packed), {},
+             50),
+            (cut_db, cut_planes, {"n_cut_from": n}, 5),
+            (store.packed, full_planes, {}, 5)):
+        pmask = random_mask(rng, qp, pdb.shape[0], 0.5, dev)
+        planes_rows = planes.contiguous()
+        parity_rows.append(check_parity(
+            pmask, planes, planes_rows, extra, iters=iters,
+            plain_iters=1 if planes is full_planes else 2,
+            fp32_library=planes is not full_planes))
+        del planes_rows
+        torch.cuda.empty_cache()
+        # the parity path answers what the fold answers
+        if max_abs_err(ops.server_answer_parity(planes, pmask),
+                       xor_fold(pdb, pmask)) != 0:
+            raise AssertionError("parity path != fold path")
+        del pmask
+    # the row of the kernel is the main path's shape; the full width and
+    # the CT scale ride along, with what the build made of the kernel
+    for key, row in (("at_full_width", parity_rows[1]),
+                     ("at_ct_scale", parity_rows[2])):
+        parity_rows[0][key] = {
+            k: row[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_ms_int8",
+                                "uint8_form", "rows_layout")}
+    parity_rows[0]["build"] = [
+        {k: e[k] for k in ("entry", "registers", "smem_bytes",
+                           "spill_store_bytes", "spill_load_bytes")}
+        for e in report["kernels"] if "parity_kernel" in e["entry"]]
+    parity_rows[0]["sass"] = tensor_core_sass(report["library"],
+                                              "parity_kernel")
+    if not parity_rows[0]["sass"] or not all(
+            c.get("IGMMA", 0) + c.get("IMMA", 0) > 0
+            for c in parity_rows[0]["sass"].values()):
+        raise AssertionError("parity_matmul's SASS has no integer tensor-"
+                             f"core instruction: {parity_rows[0]['sass']}")
     rows.append(parity_rows[0])
-    if max_abs_err(ops.server_answer_parity(planes, pmask),
-                   xor_fold(cut_db, pmask)) != 0:
-        raise AssertionError("parity path != fold path")
-    del a32, b32
 
     # scatter_rows: the ingest chunk (4096 unique rows) into the CT store
     m_up = 4096
@@ -1049,30 +1309,22 @@ def main() -> int:
 
     emit({"phase": "kernels", "card": smi, "checked": [
         {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
-                           "library_ms", "max_abs_err", "at_bert4rec",
-                           "at_gate",
-                           "at_full_width", "duplicates_last_write",
-                           "jagged", "operand_sets")
+                           "device_ms", "library_ms", "library_ms_int8",
+                           "max_abs_err", "uint8_form", "rows_layout",
+                           "at_bert4rec", "at_gate", "at_full_width",
+                           "at_ct_scale", "build", "sass",
+                           "duplicates_last_write", "jagged", "operand_sets")
          if k in r} for r in rows]})
 
-    # fold vs parity(+pack_bits) across scheduler buckets, n cut, full width
-    cross = []
-    for bucket in (8, 16, 32, 64, 128, 256, 512, 1024):
-        bm = random_mask(rng, bucket, n_cut, 0.5, dev)
-        it = 5 if bucket <= 128 else 2
-        cross.append({
-            "bucket": bucket,
-            "fold_ms": time_ms(lambda: ops.server_answer_fold(cut_db, bm),
-                               warmup=1, iters=it),
-            "parity_ms": time_ms(
-                lambda: ops.server_answer_parity(planes, bm),
-                warmup=1, iters=it),
-        })
-    wins = [c["bucket"] for c in cross if c["parity_ms"] < c["fold_ms"]]
-    emit({"phase": "crossover", "n": n_cut, "B": nb, "buckets": cross,
-          "measured_crossover": min(wins) if wins else None,
-          "configured_crossover": ops.parity_crossover_batch(n, rb * 8)})
-    del planes, pmask, cut_db
+    # the fold against the parity path across scheduler buckets, at the
+    # full record width, with n cut to 65 536 and at the whole CT store
+    emit({"phase": "crossover", "card": smi, "sizes": [
+        crossover(cut_db, cut_planes, (8, 16, 32, 64, 128, 256, 512, 1024),
+                  rng, dev, ops.parity_crossover_batch(n_cut, rb * 8)),
+        crossover(store.packed, full_planes, (8, 32, 64, 128, 256, 1024),
+                  rng, dev, ops.parity_crossover_batch(n, rb * 8)),
+    ]})
+    del cut_planes, full_planes, cut_db, planes, pdb
     torch.cuda.empty_cache()
 
     # --------------------------------------------------- 4-6 the main path
@@ -1167,7 +1419,7 @@ def main() -> int:
           "sparse")
     big_bucket = dataclasses.replace(red, scheme="chor", query_batch=128)
     serve("serve_reduced_chor_parity", big_bucket, small, 1, 128,
-          "parity_matmul", "parity",
+          "parity_matmul_packed", "parity",
           backend=ShardedBackend(small, backend=big_bucket.backend,
                                  parity_min_batch=128, device=dev))
 
@@ -1175,9 +1427,14 @@ def main() -> int:
     # made only to measure
     by_path = {"lookup": read_counts()}
     for name in ("xor_fold", "gather_xor", "fused_gather_fold",
-                 "parity_matmul"):
+                 "parity_matmul_packed"):
         if by_path["lookup"][name] <= 0:
             raise AssertionError(f"main path never launched {name}")
+
+    # ------------------------------- CT-scale Chor in buckets of 128
+    by_path["serve_chor_ct_b128"] = serve_chor_ct_b128(
+        pir_ct, cfg, store, dev, rng, wrappers, ShardedBackend,
+        ops.PARITY_NEVER_WINS, read_counts, reset_counts)
 
     # ------------------------------------------------ 7 serving a live store
     from repro_torch.data.pipeline import pir_delta_batch
@@ -1211,11 +1468,12 @@ def main() -> int:
     # each kernel's count comes from the first path that runs it; every
     # path's own counts ride along
     for r in rows:
-        path = next((p for p, c in by_path.items() if c[r["name"]] > 0), None)
+        counter = r.get("counter", r["name"])
+        path = next((p for p, c in by_path.items() if c[counter] > 0), None)
         if path is None:
             raise AssertionError(f"no path launched {r['name']}")
-        r["launches"] = by_path[path][r["name"]]
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+        r["launches"] = by_path[path][counter]
+        r["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
 
     # the d per-server answers of a planned batch enqueued back to back
     # with ONE synchronisation (against answer_batch's d), and the

@@ -5,7 +5,8 @@ multiple of 32 bits and packed into 32-bit words ("W words per record").
 Two layouts are used by the kernels:
 
   * packed  : [n, W] words — one row per record (XOR-fold / gather-XOR)
-  * bitplane: [n, B] uint8 {0,1} — one column per bit (parity-matmul)
+  * bitplane: [n, B] uint8 {0,1} — one column per bit (parity-matmul),
+    each column contiguous in memory (the view of a [B, n] tensor)
 
 Word dtype: torch's ``uint32`` lacks XOR, shifts and indexing on some
 devices, and XOR is sign-agnostic, so packed words are held as
@@ -142,10 +143,15 @@ def bitplanes_from_packed(
     """[n, W] words -> [n, 32*W] {0,1} planes for the parity-matmul path.
 
     uint8 by default: the 0/1 values are what matter, and float32 planes
-    of a million 1.5 kB records would be four times the bytes. Unpacked in
-    chunks of rows into a preallocated result."""
+    of a million 1.5 kB records would be four times the bytes. Stored bit
+    column by bit column — a [32*W, n] tensor, each row one bit of every
+    record — and returned as its [n, 32*W] view ``.t()``: the layout the
+    parity kernel's tensor cores read without a transpose (``contiguous()``
+    gives the reference's [n, 32*W] rows). Unpacked in chunks of records
+    into the preallocated result."""
     n, w = words.shape
-    planes = torch.empty((n, w * WORD_BITS), dtype=dtype, device=words.device)
+    planes = torch.empty((w * WORD_BITS, n), dtype=dtype,
+                         device=words.device).t()
     for lo in range(0, n, _PLANES_CHUNK_ROWS):
         hi = lo + _PLANES_CHUNK_ROWS
         planes[lo:hi] = unpack_bits(words[lo:hi])

@@ -85,7 +85,9 @@ class RecordStore:
         return packing.bitcast_u32_to_f32(self.packed)
 
     def bitplanes(self, dtype: torch.dtype = torch.uint8) -> torch.Tensor:
-        """[n, 32*W] {0,1} planes for the parity-matmul server path."""
+        """[n, 32*W] {0,1} planes for the parity-matmul server path (the
+        view of their bit-major storage: see
+        :func:`packing.bitplanes_from_packed`)."""
         return packing.bitplanes_from_packed(self.packed, dtype=dtype)
 
 

@@ -39,7 +39,7 @@ SOURCES = (
     "flash_attention.cu",
     "flash_attention_wgmma.cu",
 )
-HEADERS = ("common.cuh", "fused_slab.cuh")
+HEADERS = ("common.cuh", "fused_slab.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argument types (every one returns cudaGetLastError())
 _SIGNATURES = {
     "pir_xor_fold": (_P, _P, _P, _I, _I, _I, _P),
@@ -55,7 +56,7 @@ _SIGNATURES = {
     "pir_fused_multi_gather_fold": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    "pir_parity_matmul": (_P, _P, _P, _I, _I, _I, _P),
+    "pir_parity_matmul": (_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P),
     "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pir_flash_attention_fwd": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,

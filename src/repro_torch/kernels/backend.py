@@ -53,7 +53,7 @@ from repro_torch.kernels.fused import (
     fused_multi_gather_fold,
 )
 from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
-from repro_torch.kernels.parity_matmul import parity_matmul
+from repro_torch.kernels.parity_matmul import parity_matmul_packed
 from repro_torch.kernels.scatter import scatter_rows
 from repro_torch.kernels.xor_fold import xor_fold
 
@@ -246,7 +246,9 @@ class KernelPlanner:
 
     def planes(self) -> torch.Tensor:
         """The store's uint8 bitplanes, built the first time a parity plan
-        actually executes (at a million 1.5 kB records they are 12 GB)."""
+        actually executes (at a million 1.5 kB records they are 12 GB),
+        held bit column by bit column ([B, n] storage, this its [n, B]
+        view: :func:`packing.bitplanes_from_packed`)."""
         if self._planes is None:
             self._planes = self.store.bitplanes()
             self.metrics["precompute_full_builds"] += 1
@@ -437,7 +439,10 @@ class KernelPlanner:
                     store.packed.index_select(0, rows),
                     dtype=self._planes.dtype,
                 )
-                self._planes = self._planes.index_copy(0, rows, fresh)
+                # a new [B, n] storage, the touched records' columns
+                # replaced; the old one stays as it was
+                self._planes = self._planes.t().index_copy(
+                    1, rows, fresh.t()).t()
                 refreshed = int(rows.numel())
             kept = len(self._plans)
             self.metrics["plans_kept"] += kept
@@ -475,7 +480,7 @@ def _path_answer_fn(
             return lambda planes, m: packing.pack_bits(
                 ref.parity_matmul_ref(m, planes)
             )
-        return lambda planes, m: packing.pack_bits(parity_matmul(m, planes))
+        return lambda planes, m: parity_matmul_packed(m, planes)
     if path == "sparse_ref":
         return lambda db, m: ref.gather_xor_ref(
             db, indices_from_mask(m, m_budget)

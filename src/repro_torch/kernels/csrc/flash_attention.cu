@@ -1,9 +1,10 @@
 // flash_attention_fwd: out = softmax(mask(q k^T / sqrt(d))) v per (batch*head)
 // row, with an online softmax so the [Sq, Sk] score matrix never leaves the
-// chip. Masks by absolute position from 0: kpos < sk, then kpos <= qpos if
-// causal, then kpos > qpos - window if a window is set. Masked scores take
-// the finite value -1e30 (not -inf), the f32 carry is (acc, m, l), and the
-// epilogue is acc / max(l, 1e-30) cast to the input type.
+// chip. Masks by absolute position from 0: kpos <= qpos if causal, then
+// kpos > qpos - window if a window is set. Masked scores take the finite
+// value -1e30 (not -inf), the padding keys >= sk take -inf, the f32 carry
+// is (acc, m, l), and the epilogue is acc / max(l, 1e-30) cast to the
+// input type.
 //
 // Replaces the TPU kernel of the reference package's
 // kernels/flash_attention.py (`_kernel`: a grid (B*H, q blocks, kv blocks)
@@ -31,8 +32,12 @@
 //   product, where it owns 4 rows x d/16 output columns.
 // - Ragged edges (rows >= Sq, keys >= Sk, columns >= d) are zero-filled in
 //   shared memory, which is what the reference's zero padding of Sq and Sk
-//   does; keys >= Sk are masked. Head dims up to 256 are taken by padding
-//   the column count to the next of 16, 32, 64, 128, 256 in the tiles.
+//   does. Keys >= Sk take -inf, not -1e30, so p = 0 there exactly: a row
+//   that the mask empties (Sq > Sk with a window) averages its Sk real
+//   keys, as the plain version does, and the padding never enters l. The
+//   last key tile always holds a real key, so m stays finite. Head dims
+//   up to 256 are taken by padding the column count to the next of 16,
+//   32, 64, 128, 256 in the tiles.
 // - Key tiles that the mask empties for every row of the q tile are
 //   skipped: those after the diagonal under a causal mask, and, with a
 //   window and Sq <= Sk, those before the window. Both skips give the same
@@ -180,10 +185,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const long long kpos = k0 + tx * 4 + j;
-        bool ok = kpos < sk;
-        if (causal) ok = ok && kpos <= qpos;
+        bool ok = true;
+        if (causal) ok = kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
         if (!ok) s[i][j] = NEG_INF;
+        if (kpos >= sk) s[i][j] = -INFINITY;  // padding: not even in l
         rmax = fmaxf(rmax, s[i][j]);
       }
       // the 16 lanes of a half-warp hold the 64 keys of the same rows

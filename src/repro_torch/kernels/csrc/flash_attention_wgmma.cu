@@ -72,10 +72,9 @@
 // Later work (ROADMAP): a third consumer warpgroup (more warps to hide
 // the softmax's latency), a persistent grid, GQA-aware K/V reads.
 #include "common.cuh"
+#include "sm90.cuh"
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes by dlsym
 #include <cuda_bf16.h>
-#include <dlfcn.h>
 #include <math.h>
 
 namespace {
@@ -113,93 +112,10 @@ struct Tile {
 };
 
 // ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Waits until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// A shared-memory matrix descriptor for wgmma with the 128-byte swizzle
-// (layout type 1): start address, leading and stride byte offsets, all
-// in 16-byte units.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from touching accumulators across an async wgmma
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 #define ACC8(d, i)                                                       \
@@ -275,13 +191,6 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo_col, float hi_col) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The online softmax of one 64 x BK tile of scores. s: the raw products
@@ -431,7 +340,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (threadIdx.x != CONSUMERS * 128) return;
     mbar_expect_tx(q_full, T::Q_BYTES);
     for (int c = 0; c < CB; ++c)
-      tma_load(sq_addr + c * BQ * ROW_BYTES, &tm_q, q_full, c * SW, q0, bh);
+      tma_load_3d(sq_addr + c * BQ * ROW_BYTES, &tm_q, q_full, c * SW, q0,
+                  bh);
     int stage = 0;
     uint32_t phase = 0;
     for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -439,8 +349,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(full + 8 * stage, 2 * T::KV_BYTES);
       for (int c = 0; c < CB; ++c) {
         const uint32_t off = stage * T::KV_BYTES + c * BK * ROW_BYTES;
-        tma_load(sk_addr + off, &tm_k, full + 8 * stage, c * SW, kt * BK, bh);
-        tma_load(sv_addr + off, &tm_v, full + 8 * stage, c * SW, kt * BK, bh);
+        tma_load_3d(sk_addr + off, &tm_k, full + 8 * stage, c * SW, kt * BK,
+                    bh);
+        tma_load_3d(sv_addr + off, &tm_v, full + 8 * stage, c * SW, kt * BK,
+                    bh);
       }
       if (++stage == STAGES) {
         stage = 0;
@@ -549,37 +461,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     *reinterpret_cast<uint32_t*>(generic + off) =
         pack_bf16x2(o[i] / den[h], o[i + 1] / den[h]);
   }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_proxy_async();
   bar_sync(EPI_BAR + wg, 128);
   if (t == 0 && q0w < sq) {
     for (int c = 0; c < CB; ++c)
-      tma_store(&tm_o, qw_addr + c * BQ * ROW_BYTES, c * SW, q0w, bh);
+      tma_store_3d(&tm_o, qw_addr + c * BQ * ROW_BYTES, c * SW, q0w, bh);
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
 // ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver library the process has loaded
-// (the CUDA runtime has): no link against libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
 // a [bh][rows][d] bf16 tensor, boxes of [1][box_rows][64] with the
 // 128-byte swizzle; out-of-bounds elements read as zero
 bool tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int d,

@@ -19,7 +19,9 @@ cores). Both replace the reference package's TPU kernel
 operations, 4·d flops per unmasked (q, k) pair. It takes
 :func:`flash_attention_plain` only for tensors on the CPU. The kernels
 zero-fill the ragged edges of Sq and Sk in their tiles, as the reference
-zero-pads them. GQA's broadcast of K/V over the query heads happens in
+zero-pads them, and give the padded keys −inf: a row that the mask
+empties (Sq > Sk with a window) averages its Sk keys, as the plain
+version does. GQA's broadcast of K/V over the query heads happens in
 :func:`repro_torch.models.layers.gqa_attention`.
 """
 

@@ -14,9 +14,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.db import packing
 from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
-from repro_torch.kernels.parity_matmul import parity_matmul
+from repro_torch.kernels.parity_matmul import parity_matmul_packed
 from repro_torch.kernels.xor_fold import xor_fold
 
 __all__ = [
@@ -36,8 +35,9 @@ def server_answer_fold(db_packed: torch.Tensor, mask: torch.Tensor) -> torch.Ten
 
 
 def server_answer_parity(db_planes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Parity path: [n, Bbits] planes, [q, n] mask -> packed [q, W] words."""
-    return packing.pack_bits(parity_matmul(mask, db_planes))
+    """Parity path: [n, Bbits] planes, [q, n] mask -> packed [q, W] words
+    (the kernel packs the bits in its epilogue)."""
+    return parity_matmul_packed(mask, db_planes)
 
 
 def server_answer_sparse(
@@ -65,19 +65,36 @@ def parity_crossover_batch(n: int, record_bits: int) -> int:
     """Batch size from which the parity path beats the fold — the prior of
     the execution planner's fold/parity choice. Measured, not modelled:
 
-    on an NVIDIA H100 80GB HBM3 (power limit 700.00 W, 2026-10-16,
-    ``chip_smoke.py`` phase ``crossover``: n cut to 65 536 records, the
-    full 12 288 bit columns) ``xor_fold`` took 0.060 / 0.46 / 3.2 ms at
-    buckets 8 / 128 / 1024 and ``parity_matmul`` + ``pack_bits`` 5.0 /
-    7.3 / 47.9 ms: the parity path lost at every scheduler bucket, by 15×
-    or more. The fold streams the packed store once per eight queries;
-    the integer product reads the same records as eight times the bytes
-    (one uint8 per bit) and does 2·q·n·B operations on top. So the
-    function returns :data:`PARITY_NEVER_WINS`, above any bucket; a
-    faster parity kernel has to re-measure before it lowers this.
+    on an NVIDIA H100 80GB HBM3 (power limit 700.00 W, ``chip_smoke.py``
+    phase ``crossover``, the full 12 288 bit columns, the planes held
+    n-contiguous as the planner holds them) ``xor_fold`` against
+    ``parity_matmul_packed`` took, in ms at buckets 8 / 32 / 64 / 128 /
+    256 / 1024:
+
+    - n cut to 65 536: fold 0.0475 / 0.148 / 0.208 / 0.446 / 0.834 /
+      3.11, parity 0.275 / 0.277 / 0.277 / 0.279 / 0.341 / 1.02: parity
+      first wins at 128;
+    - n = 10^6: fold 0.537 / 2.08 / 4.06 / 7.95 / 15.2 / 54.8, parity
+      3.95 / 3.99 / 4.03 / 4.02 / 5.11 / 22.1: parity first wins at 64,
+      by 0.8 %, and by 2x at 128 (earlier runs on the same card gave the
+      same two crossovers).
+
+    The fold streams the packed store once per eight queries, so its time
+    grows with q; the parity kernel reads the planes (one byte per record
+    bit) once, whatever q up to about 256. Parity carries a fixed cost
+    (launch, the output's zeroing, the last wave's tail: the intercept in
+    n of the two measurements, 0.01-0.03 ms over the runs) that weighs at
+    small n, while the fold took about a fifth less time per record at
+    the smaller n; so the crossover falls as n grows. Between and beyond
+    the two measured sizes the function takes the nearer one's on a log
+    scale: 128 below n = 256 000 (about the geometric mean of 65 536 and
+    10^6), 64 from there. Both sides grow alike with the record width (the
+    fold reads 4 bytes a word, the parity kernel one a bit), so
+    ``record_bits`` does not move the crossover to first order; both
+    measurements are at 12 288 bits.
     """
-    del n, record_bits  # the ratio held across every bucket measured
-    return PARITY_NEVER_WINS
+    del record_bits  # see above
+    return 128 if n < 256_000 else 64
 
 
 def server_answer_auto(

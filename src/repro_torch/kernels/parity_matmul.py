@@ -5,22 +5,42 @@ integer matmul over {0,1} operands:
 
     out_bits = (mask @ bitplanes) mod 2          mask: [q, n], planes: [n, B]
 
-:func:`parity_matmul` launches the CUDA kernel ``csrc/parity_matmul.cu``
-for tensors on the card (it replaces the reference package's TPU kernel
-``kernels/parity_matmul.py::_kernel``; on an H100 bound by the planes'
-bytes below q ≈ 300 and by the 2·q·n·B operations above). The kernel accumulates in 32-bit integers, exact for every n the wrapper
-admits, and writes only the parity bits. :func:`parity_matmul_plain` is
-the plain PyTorch version, taken only for tensors on the CPU.
+:func:`parity_matmul` (the reference's ``[q, B]`` uint8 bits) and
+:func:`parity_matmul_packed` (the same bits packed LSB first into
+``[q, ceil(B/32)]`` words, the store's layout, so the parity path needs no
+``pack_bits`` after it) launch the CUDA kernel ``csrc/parity_matmul.cu``
+for tensors on the card. It replaces the reference package's TPU kernel
+``kernels/parity_matmul.py::_kernel``: int8 products on Hopper's tensor
+cores (wgmma) accumulated in 32-bit integers, exact for every n the
+wrapper admits, with the mod-2 epilogue in the kernel; on an H100 bound by
+the planes' bytes below q ≈ 300 and by the 2·q·n·B operations above.
+
+The planes come in either of two layouts, taken as they are: ``[n, B]``
+contiguous (the reference's), which the kernel transposes on the way to
+the tensor cores, or the ``[n, B]`` view ``.t()`` of a contiguous
+``[B, n]`` tensor (what
+:func:`repro_torch.db.packing.bitplanes_from_packed` returns and the
+serving path holds), which they read as it lies. The plain versions,
+taken only for tensors on the CPU, are :func:`parity_matmul_plain` and
+:func:`parity_matmul_packed_plain`.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from repro_torch.db import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_launch, require, stream_ptr
+from repro_torch.kernels._common import check_launch, stream_ptr
 
-__all__ = ["parity_matmul", "parity_matmul_plain"]
+__all__ = [
+    "parity_matmul",
+    "parity_matmul_packed",
+    "parity_matmul_plain",
+    "parity_matmul_packed_plain",
+]
 
 _PLAIN_CHUNK_N = 1 << 16
 
@@ -39,41 +59,111 @@ def parity_matmul_plain(mask: torch.Tensor, planes: torch.Tensor) -> torch.Tenso
     return out
 
 
+def parity_matmul_packed_plain(mask: torch.Tensor,
+                               planes: torch.Tensor) -> torch.Tensor:
+    """Plain version of the packed form: ``pack_bits`` of the bits."""
+    return packing.pack_bits(parity_matmul_plain(mask, planes))
+
+
 def _as_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint8 0/1 as it lies; any other dtype converted (nonzero -> 1)."""
     if x.dtype != torch.uint8:
         x = (x != 0).to(torch.uint8)
-    return x.contiguous()
+    return x
+
+
+def _rows_on_16_bytes(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``x`` [rows, cols] uint8 and its row stride in bytes as TMA reads
+    it: ``x`` itself where its columns are adjacent and its rows start on
+    16-byte boundaries, else a copy into rows padded to a multiple of 16
+    (the kernel never reads the padding)."""
+    rows, cols = x.shape
+    ld = x.stride(0) if rows > 1 else -(-cols // 16) * 16
+    if ((cols == 1 or x.stride(1) == 1) and ld >= cols and ld % 16 == 0
+            and x.data_ptr() % 16 == 0):
+        return x, ld
+    ld = -(-cols // 16) * 16
+    buf = torch.empty((rows, ld), dtype=torch.uint8, device=x.device)
+    buf[:, :cols] = x
+    return buf, ld
+
+
+def _planes_storage(planes: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+    """The planes as the matrix their bytes lie in, and whether that is
+    ``[B, n]`` (n-contiguous: ``planes`` is its ``.t()`` view) rather than
+    ``[n, B]``."""
+    n, b = planes.shape
+    if n > 1 and planes.stride(0) == 1 and (b == 1 or planes.stride(1) != 1):
+        return planes.t(), True
+    return planes, False
+
+
+def _launch(fn, mask: torch.Tensor, planes: torch.Tensor,
+            packed: bool) -> torch.Tensor:
+    if planes.device != mask.device:
+        raise ValueError(f"planes are on {planes.device}, expected "
+                         f"{mask.device}")
+    if max(*mask.shape, *planes.shape) >= 2**31:
+        raise ValueError("an axis beyond the kernel's int range")
+    mask, planes = _as_bits(mask), _as_bits(planes)
+    storage, k_major = _planes_storage(planes)
+    q, n = mask.shape
+    b = planes.shape[1]
+    dev = mask.device
+    dtype = packing.WORD_DTYPE if packed else torch.uint8
+    cols = -(-b // packing.WORD_BITS) if packed else b
+    if q == 0 or b == 0 or n == 0:
+        return torch.zeros((q, cols), dtype=dtype, device=dev)
+    # the uint8 form is written four bit columns a word: rows of a
+    # multiple of 4 bytes
+    ld_out = cols if packed else -(-b // 4) * 4
+    out = torch.empty((q, ld_out), dtype=dtype, device=dev)
+    mask_t, ld_mask = _rows_on_16_bytes(mask)
+    planes_t, ld_planes = _rows_on_16_bytes(storage)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.pir_parity_matmul(
+            mask_t.data_ptr(), ld_mask, planes_t.data_ptr(), ld_planes,
+            out.data_ptr(), ld_out, q, n, b, int(packed), int(k_major),
+            stream_ptr(dev),
+        )
+    fn.launches += 1
+    check_launch(code, fn.__name__)
+    if not packed and ld_out != b:
+        return out[:, :b].contiguous()
+    return out
+
+
+def _check_shapes(mask: torch.Tensor, planes: torch.Tensor) -> None:
+    if mask.dim() != 2 or planes.dim() != 2 or mask.shape[1] != planes.shape[0]:
+        raise ValueError(f"shapes disagree: mask {tuple(mask.shape)}, "
+                         f"planes {tuple(planes.shape)}")
 
 
 def parity_matmul(mask: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     """mask: [q, n] {0,1}; planes: [n, B] {0,1} -> [q, B] uint8 bits.
 
     Inputs may be any integer/float/bool dtype holding 0/1; anything but
-    uint8 is converted to uint8 first."""
-    if mask.dim() != 2 or planes.dim() != 2 or mask.shape[1] != planes.shape[0]:
-        raise ValueError(f"shapes disagree: mask {tuple(mask.shape)}, "
-                         f"planes {tuple(planes.shape)}")
+    uint8 is converted to uint8 first (nonzero -> 1). uint8 inputs are
+    multiplied as they are, as the reference's kernel does: they hold
+    0/1."""
+    _check_shapes(mask, planes)
     if mask.device.type == "cpu":
         return parity_matmul_plain(mask, planes)
-    mask, planes = _as_bits(mask), _as_bits(planes)
-    require(mask, "mask", torch.uint8, 2, mask.device)
-    require(planes, "planes", torch.uint8, 2, mask.device)
-    q, n = mask.shape
-    b = planes.shape[1]
-    if q > 65535 * 64:
-        raise ValueError(f"parity_matmul takes at most {65535 * 64} queries")
-    out = torch.empty((q, b), dtype=torch.uint8, device=mask.device)
-    if q == 0 or b == 0:
-        return out
-    lib = _build.library()
-    with torch.cuda.device(mask.device):
-        code = lib.pir_parity_matmul(
-            mask.data_ptr(), planes.data_ptr(), out.data_ptr(), q, n, b,
-            stream_ptr(mask.device),
-        )
-    parity_matmul.launches += 1
-    check_launch(code, "parity_matmul")
-    return out
+    return _launch(parity_matmul, mask, planes, packed=False)
+
+
+def parity_matmul_packed(mask: torch.Tensor,
+                         planes: torch.Tensor) -> torch.Tensor:
+    """mask: [q, n] {0,1}; planes: [n, B] {0,1} -> [q, ceil(B/32)] words
+    (``packing.WORD_DTYPE``), bit j of word w = bit column 32·w + j; the
+    high bits of a ragged last word are 0. Equal to
+    ``pack_bits(parity_matmul(mask, planes))``; the same inputs."""
+    _check_shapes(mask, planes)
+    if mask.device.type == "cpu":
+        return parity_matmul_packed_plain(mask, planes)
+    return _launch(parity_matmul_packed, mask, planes, packed=True)
 
 
 parity_matmul.launches = 0
+parity_matmul_packed.launches = 0

@@ -118,6 +118,20 @@ def test_unforced_fold_parity_choice_follows_the_measured_crossover():
         assert plan.source == "model"
 
 
+@pytest.mark.parametrize("bucket,port_path", [(32, "fold"), (64, "parity"),
+                                              (128, "parity")])
+def test_unforced_chor_at_ct_scale_departs_from_the_reference(bucket,
+                                                              port_path):
+    """At n = 10^6 the port's measured crossover is 64, the reference's
+    modelled one 128 (ROADMAP Queue C): an unforced chor bucket of 64
+    plans parity in the port and fold in the reference; 32 and 128 plan
+    alike. The answers are the same bits either way."""
+    rplan, tplan = _plans("chor", {}, bucket, 10**6, 4, None, None)
+    assert ops.parity_crossover_batch(10**6, 32) == 64
+    assert tplan.path == port_path and tplan.source == "model"
+    assert rplan.path == ("parity" if bucket >= 128 else "fold")
+
+
 def test_plans_are_cached_per_cell():
     store = make_synthetic_store(512, 24, device="cpu")
     sch = make_scheme("sparse", d=4, d_a=2, theta=0.25).staged

@@ -26,7 +26,12 @@ from repro_torch.kernels.gather_xor import (
     gather_xor_plain,
     indices_from_mask,
 )
-from repro_torch.kernels.parity_matmul import parity_matmul, parity_matmul_plain
+from repro_torch.kernels.parity_matmul import (
+    parity_matmul,
+    parity_matmul_packed,
+    parity_matmul_packed_plain,
+    parity_matmul_plain,
+)
 from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
 from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
 
@@ -123,13 +128,129 @@ def test_all_padding_rows_answer_zero(cuda_device):
         assert int(got.abs().sum()) == 0
 
 
-@pytest.mark.parametrize("n,rb,q", SHAPES[:8] + [(3000, 96, 70)])
+@pytest.mark.parametrize("n,rb,q", SHAPES + [(3000, 96, 70)])
 def test_parity_matmul_kernel_equals_plain(cuda_device, n, rb, q):
     store, mask = _case(n, rb, q, cuda_device)
-    planes = store.bitplanes()
+    planes = store.bitplanes().contiguous()  # the reference's layout
+    launches = (parity_matmul.launches, parity_matmul_packed.launches)
     got = parity_matmul(mask, planes)
     _same(got, parity_matmul_plain(mask, planes))
-    _same(ops.server_answer_parity(planes, mask), xor_fold(store.packed, mask))
+    packed = ops.server_answer_parity(planes, mask)
+    assert (parity_matmul.launches, parity_matmul_packed.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    _same(packed, parity_matmul_packed_plain(mask, planes))
+    _same(packed, xor_fold(store.packed, mask))
+    _same(ops.server_answer_parity(store.bitplanes(), mask), packed)
+
+
+PARITY_CASES = [
+    # (n, B bit columns, q)
+    (2222, 288, 13),      # n not a multiple of 16: the mask's padded copy
+    (3000, 96, 70),
+    (100, 40, 3),
+    (2048, 1, 5),         # B = 1, 33: the planes' padded copy
+    (2048, 33, 5),
+    (4096, 12288, 8),     # the CT record's 12 288 bit columns
+    (1024, 512, 1),
+    (1024, 512, 63),
+    (1024, 512, 65),
+    (2048, 512, 1000),
+    (128, 512, 128),      # one 128-wide n tile: one split
+    (65536, 512, 128),    # two output tiles, 512 n tiles: many splits
+    (1000, 13000, 300),   # more output tiles than SMs
+]
+
+
+def _bits(shape, p, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.random(shape) < p).astype(np.uint8)).to(device)
+
+
+def _planes(n, b, device, seed, layout):
+    """Random 0/1 planes [n, b]: contiguous ("rows"), or the view of a
+    contiguous [b, n] tensor ("n_contiguous"), the serving path's."""
+    if layout == "rows":
+        return _bits((n, b), 0.5, device, seed)
+    return _bits((b, n), 0.5, device, seed).t()
+
+
+@pytest.mark.parametrize("n,b,q", PARITY_CASES)
+@pytest.mark.parametrize("layout", ["rows", "n_contiguous"])
+def test_parity_kernel_both_forms_equal_plain(cuda_device, n, b, q, layout):
+    mask = _bits((q, n), 0.4, cuda_device, seed=n + q)
+    planes = _planes(n, b, cuda_device, b, layout)
+    bits = parity_matmul(mask, planes)
+    assert bits.shape == (q, b) and bits.dtype == torch.uint8
+    _same(bits, parity_matmul_plain(mask, planes))
+    words = parity_matmul_packed(mask, planes)
+    assert words.shape == (q, -(-b // 32)) and words.dtype == torch.int32
+    _same(words, parity_matmul_packed_plain(mask, planes))
+
+
+def test_parity_kernel_reads_row_slices_of_either_layout(cuda_device):
+    """Views whose rows are 16-byte aligned go to the kernel as they lie:
+    a slice of records of either layout."""
+    mask = _bits((40, 4096), 0.5, cuda_device, seed=7)
+    for layout in ("rows", "n_contiguous"):
+        planes = _planes(8192, 512, cuda_device, 8, layout)[2048:6144]
+        _same(parity_matmul_packed(mask, planes),
+              parity_matmul_packed_plain(mask, planes))
+
+
+@pytest.mark.parametrize("layout", ["rows", "n_contiguous"])
+def test_parity_kernel_all_ones_gives_n_mod_2(cuda_device, layout):
+    """Every sum is n = 65 537: every bit is 1, in every split."""
+    n, b, q = 65537, 64, 4
+    mask = torch.ones((q, n), dtype=torch.uint8, device=cuda_device)
+    planes = torch.ones((n, b) if layout == "rows" else (b, n),
+                        dtype=torch.uint8, device=cuda_device)
+    if layout != "rows":
+        planes = planes.t()
+    _same(parity_matmul(mask, planes), torch.ones_like(mask[:, :b]))
+    _same(parity_matmul_packed(mask, planes),
+          torch.full((q, 2), -1, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.parametrize("layout", ["rows", "n_contiguous"])
+def test_parity_kernel_split_xor_gives_the_same_bytes_every_run(cuda_device,
+                                                                layout):
+    mask = _bits((128, 65536), 0.5, cuda_device, seed=3)
+    planes = _planes(65536, 512, cuda_device, 4, layout)
+    for fn in (parity_matmul, parity_matmul_packed):
+        first = fn(mask, planes)
+        for _ in range(3):
+            _same(fn(mask, planes), first)
+
+
+@pytest.mark.parametrize("fn", [parity_matmul, parity_matmul_packed])
+def test_parity_forms_raise_on_a_failed_build_or_launch(cuda_device,
+                                                        monkeypatch, fn):
+    from repro_torch.kernels import _build
+
+    mask = _bits((4, 256), 0.5, cuda_device, seed=5)
+    planes = _bits((256, 64), 0.5, cuda_device, seed=6)
+    launches = fn.launches
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    with monkeypatch.context() as m:
+        m.setattr(_build, "_lib", None)
+        m.setattr(_build, "_source_hash", lambda: "0000-no-such-build")
+        m.setattr(_build, "_find_nvcc", no_nvcc)
+        with pytest.raises(RuntimeError, match="nvcc"):
+            fn(mask, planes)
+    assert fn.launches == launches
+
+    class Refused:  # what a launch the card refuses returns
+        @staticmethod
+        def pir_parity_matmul(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_build, "library", lambda: Refused)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fn(mask, planes)
 
 
 def test_server_paths_agree_on_the_card(cuda_device):
@@ -390,26 +511,20 @@ def test_flash_attention_tile_skips_in_f32(cuda_device, window):
     torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
 
 
-def test_f32_kernel_counts_padded_keys_on_rows_the_mask_empties(cuda_device):
-    """A known difference of flash_attention.cu from the plain version
-    (ROADMAP Queue C), pinned so that any change to it shows. With Sq > Sk
-    and a window, rows q >= Sk - 1 + window keep no key: the plain version
-    averages the Sk keys there, while the kernel, like the reference's TPU
-    kernel, gives the zero-padded keys of its last 64-key tile the same
-    finite -1e30, so they count in l and the row averages over
-    ceil(Sk / 64) * 64 keys. Every other row agrees at the f32 tolerance."""
+def test_f32_kernel_agrees_on_rows_the_mask_empties(cuda_device):
+    """With Sq > Sk and a window, rows q >= Sk - 1 + window keep no key:
+    the plain version averages the Sk keys there. flash_attention.cu gives
+    the zero-padded keys of its last 64-key tile -inf (masked real keys
+    keep the finite -1e30), so it averages the same Sk keys and agrees at
+    the f32 tolerance on every row, the emptied ones included."""
     sq, sk, window = 500, 300, 63
     q, k, v = _flash_case(2, sq, sk, 64, torch.float32, cuda_device, seed=9)
     got = flash_attention_fwd(q, k, v, causal=True, window=window)
     want = flash_attention_plain(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     empty = sk - 1 + window
-    tol = FLASH_TOL[torch.float32]
-    torch.testing.assert_close(got[:, :empty], want[:, :empty], **tol)
-    padded = -(-sk // 64) * 64
-    torch.testing.assert_close(got[:, empty:], want[:, empty:] * sk / padded,
-                               **tol)
-    assert not torch.allclose(got[:, empty:], want[:, empty:], **tol)
+    assert empty < sq and sk % 64  # emptied rows exist; the last tile pads
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
 
 
 def test_flash_attention_global_window_is_no_window(cuda_device):

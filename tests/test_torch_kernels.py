@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.db import make_synthetic_store as ref_make_store
+from repro.db import packing as ref_packing
 from repro.kernels import (
     fused_block_w as ref_fused_block_w,
     fused_gather_fold as ref_fused_gather_fold,
@@ -21,7 +22,7 @@ from repro.kernels import (
     ref as ref_oracles,
     xor_fold as ref_xor_fold,
 )
-from repro_torch.db import make_synthetic_store
+from repro_torch.db import make_synthetic_store, packing
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused import (
     FUSED_SMEM_FALLBACK_BYTES,
@@ -30,7 +31,14 @@ from repro_torch.kernels.fused import (
     fused_smem_budget,
 )
 from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
-from repro_torch.kernels.parity_matmul import parity_matmul
+from repro_torch.kernels.parity_matmul import (
+    _planes_storage,
+    _rows_on_16_bytes,
+    parity_matmul,
+    parity_matmul_packed,
+    parity_matmul_packed_plain,
+    parity_matmul_plain,
+)
 from repro_torch.kernels.xor_fold import xor_fold
 
 from _torch_parity import seeded_mask, words_t2n
@@ -104,6 +112,90 @@ def test_parity_matmul_input_dtypes(in_dtype):
                         ts.bitplanes().to(in_dtype))
     np.testing.assert_array_equal(got.numpy(), np.asarray(
         ref_oracles.parity_matmul_ref(jnp.asarray(mask), rs.bitplanes())))
+
+
+# (n, record_bytes, q, B): the first B bit columns of the planes; None =
+# all 32·W of them
+PACKED_SHAPES = ([(n, rb, q, None) for n, rb, q in SHAPES + NONPOW2_SHAPES]
+                 + [(100, 12, 5, 33), (300, 50, 17, 1), (256, 64, 16, 257),
+                    (1000, 20, 11, 100), (137, 24, 1, None),
+                    (64, 8, 1, 31)])
+
+
+@pytest.mark.parametrize("n,rb,q,b", PACKED_SHAPES)
+@pytest.mark.parametrize("layout", ["rows", "n_contiguous"])
+def test_packed_parity_equals_reference(n, rb, q, b, layout):
+    """The packed form (the parity path's answer) is pack_bits of the
+    bits, the plain fold, and the reference's parity path (Pallas in
+    interpret mode), with the planes in either layout; ragged last words
+    keep zero high bits."""
+    rs, ts, mask = _case(n, rb, q, seed=n + q)
+    tplanes = ts.bitplanes()
+    if layout == "rows":
+        tplanes = tplanes.contiguous()
+    rplanes = rs.bitplanes()
+    if b is not None:
+        tplanes, rplanes = tplanes[:, :b], rplanes[:, :b]
+    tmask = torch.from_numpy(mask)
+    got = parity_matmul_packed(tmask, tplanes)
+    assert got.dtype == packing.WORD_DTYPE
+    assert got.shape == (q, -(-tplanes.shape[1] // 32))
+    assert torch.equal(got, parity_matmul_packed_plain(tmask, tplanes))
+    assert torch.equal(got, packing.pack_bits(parity_matmul_plain(tmask,
+                                                                  tplanes)))
+    _eq(got, ref_packing.pack_bits(ref_parity_matmul(
+        jnp.asarray(mask), rplanes, interpret=True)))
+    if b is None:
+        _eq(got, ref_ops.server_answer_parity(rplanes, jnp.asarray(mask)))
+        assert torch.equal(got, ref.xor_fold_ref(ts.packed, tmask))
+    else:
+        tail = tplanes.shape[1] % 32
+        if tail:
+            assert int((got[:, -1].view(torch.int32) >> tail).abs().sum()) == 0
+
+
+def test_packed_parity_counts_no_launch_on_the_cpu():
+    _, ts, mask = _case(64, 8, 3)
+    before = (parity_matmul_packed.launches, parity_matmul.launches)
+    ops.server_answer_parity(ts.bitplanes(), torch.from_numpy(mask))
+    parity_matmul_packed(torch.from_numpy(mask), ts.bitplanes())
+    assert before == (parity_matmul_packed.launches, parity_matmul.launches)
+
+
+def test_planes_reach_the_kernel_in_the_layout_they_lie_in():
+    """[n, B] planes go as [n, B]; the [n, B] view of an n-contiguous
+    [B, n] tensor (the serving path's) goes as the [B, n] tensor, with no
+    copy either way."""
+    _, ts, _ = _case(300, 12, 1)
+    cols = ts.bitplanes()
+    rows = cols.contiguous()
+    assert torch.equal(rows, cols) and cols.t().is_contiguous()
+    storage, k_major = _planes_storage(rows)
+    assert storage is rows and not k_major
+    storage, k_major = _planes_storage(cols)
+    assert k_major and storage.is_contiguous()
+    assert storage.data_ptr() == cols.data_ptr()
+    storage, k_major = _planes_storage(cols[16:160])  # a slice of records
+    assert k_major and storage.stride() == (300, 1)
+
+
+@pytest.mark.parametrize("rows,cols,offset", [(3, 32, 0), (3, 33, 0),
+                                              (5, 2222, 0), (2, 48, 1),
+                                              (1, 1, 0)])
+def test_operands_reach_the_kernel_on_16_byte_rows(rows, cols, offset):
+    """What the wrapper hands the kernel's TMA loads: the tensor itself
+    when its rows start on 16 bytes, else a copy into rows padded to a
+    multiple of 16 holding the same bytes; a row stride of 16 bytes'
+    multiple either way."""
+    flat = (torch.arange(rows * cols + offset) % 251).to(torch.uint8)
+    x = flat[offset:].reshape(rows, cols)
+    assert x.data_ptr() % 16 == offset
+    got, ld = _rows_on_16_bytes(x)
+    assert ld % 16 == 0 and ld >= cols and got.data_ptr() % 16 == 0
+    assert rows == 1 or got.stride() == (ld, 1)
+    assert torch.equal(got[:, :cols], x)
+    if (rows == 1 or cols % 16 == 0) and x.data_ptr() % 16 == 0:
+        assert got is x
 
 
 @pytest.mark.parametrize("n,rb,q", SHAPES + NONPOW2_SHAPES)
