@@ -15,15 +15,18 @@ attention models at full width: SmolLM-135M serving (prefill and
 greedy decode of 4 x 4096 tokens, one 32 768-token prefill, the f32 model
 on the card against the CPU) and BERT4Rec scoring 32 users whose item
 histories are fetched by Sparse-PIR. Builds the CUDA kernels from the
-eight sources in this tree (flash attention has two: bf16 at head dims 64
-and 128 on the tensor cores, everything else in f32), holds each against
-its plain PyTorch version on the card (bit for bit for the six GF(2)
-kernels, PIR is exact; within the reference's float tolerance for flash
-attention), times them with CUDA events, and checks that the answers are
-right (stored or pinned records; finite logits that agree with the CPU;
-private logits equal to the plain ones bit for bit) and that each path
-went through its kernels (launch counters, set to 0 before a path and read
-after it). One JSON line per phase; the last line is the verdict.
+nine sources in this tree (flash attention has two: bf16 at head dims 64
+and 128 on the tensor cores, everything else in f32; the Sparse-PIR
+index compaction in front of the gather has one), holds each against its
+plain PyTorch version on the card (bit for bit for the six GF(2) kernels
+and the compaction, PIR is exact; within the reference's float tolerance
+for flash attention), times them with CUDA events (the gather at batches
+of 8, 32 and 1, on ascending ids and on shuffled ones), and checks that
+the answers are right (stored or pinned records; finite logits that
+agree with the CPU; private logits equal to the plain ones bit for bit)
+and that each path went through its kernels (launch counters, set to 0
+before a path and read after it). One JSON line per phase; the last line
+is the verdict.
 
 Needs a CUDA device and ``nvcc``; exits non-zero without printing a verdict
 when there is no device. Imports only ``repro_torch``.
@@ -242,13 +245,20 @@ def serve_live(pir_ct, cfg, base, dev, rng, pir_delta_batch, Delta,
 
 
 def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
-                flushes=2):
+                flushes=2, breakdown=False, also=()):
     """8 multi-index requests per batch, k from 1 to 4 (a relying party
-    fetching a certificate with its chain): one flat bucket of 8 x 4."""
+    fetching a certificate with its chain): one flat bucket of 8 x 4.
+    ``kernel`` and each wrapper in ``also`` must launch d times a batch.
+    With ``breakdown``, one more batch through the pipeline's entry points
+    is cut into plan and execute; returns (label, pipe, planned) of that
+    batch for ``per_server_split``, which waits until the path's counts are
+    read."""
     pipe = pir_ct.make_serving_pipeline(cfg, store=store_, device=dev, seed=6)
     torch.cuda.reset_peak_memory_stats()
     times, launches = [], []
-    for _ in range(flushes):
+    counted = (kernel,) + tuple(also)
+
+    def submit():
         ks = rng.integers(1, 5, size=8)
         ks[0] = 4  # the longest chain sets k_max = 4
         asked = {f"client-{c}": rng.integers(0, store_.n, size=int(k))
@@ -256,25 +266,34 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
         for client, lst in asked.items():
             if not pipe.submit_many(client, [int(i) for i in lst]):
                 raise AssertionError("budget refused a request")
-        before = kernel.launches
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = pipe.flush()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        launches.append(kernel.launches - before)
-        if launches[-1] != cfg.d:
-            raise AssertionError(f"{label}: {launches[-1]} launches in one "
-                                 f"batch, expected d={cfg.d}")
+        return asked
+
+    def check(out, asked, before, what):
+        grew = [f_.launches - b for f_, b in zip(counted, before)]
+        if any(g != cfg.d for g in grew):
+            raise AssertionError(
+                f"{label}: {[f_.__name__ for f_ in counted]} launched {grew} "
+                f"times in {what}, expected d={cfg.d}")
         for client, lst in asked.items():
             want = np.stack([store_.record_bytes(int(i)) for i in lst])
             if out[client].shape != (len(lst), cfg.record_bytes) or \
                     not np.array_equal(out[client], want):
                 raise AssertionError(f"{label}: wrong rows for {client}")
+        return grew[0]
+
+    for _ in range(flushes):
+        asked = submit()
+        before = [f_.launches for f_ in counted]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.flush()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launches.append(check(out, asked, before, "one batch"))
     if pipe.backend.path_counts[family] != cfg.d * flushes:
         raise AssertionError(f"{label}: {pipe.backend.path_counts}")
     plan = next(iter(pipe.backend.planner._plans.values()))
-    emit({
+    line = {
         "phase": label, "scheme": cfg.scheme, "n": store_.n,
         "record_bytes": cfg.record_bytes, "d": cfg.d, "requests": 8,
         "flat_bucket": plan.bucket, "flushes": flushes, "flush_s": times,
@@ -284,9 +303,59 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
         "metrics": {k: pipe.metrics[k] for k in ("queries", "batches",
                                                  "padded")},
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-    })
+    }
+    deferred = None
+    if breakdown:
+        asked = submit()
+        before = [f_.launches for f_ in counted]
+        cut = pipe.take_batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        planned = pipe.plan_requests(cut)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t
+        t = time.perf_counter()
+        results = pipe.execute_planned(planned)
+        torch.cuda.synchronize()
+        execute_s = time.perf_counter() - t
+        check({r.client: a for r, a in results}, asked, before,
+              "the batch cut into phases")
+        line["breakdown"] = {"plan_s": plan_s, "execute_s": execute_s}
+        deferred = (label, pipe, planned)
+    emit(line)
     del pipe
     torch.cuda.empty_cache()
+    return deferred
+
+
+def per_server_split(label, pipe, planned):
+    """A planned batch's d per-server answers enqueued back to back with
+    ONE synchronisation (against answer_batch's d), one server's answer,
+    the index compaction inside it, and the reconstruction (CUDA events).
+    Measurement only: it runs after the path's launch counts are read."""
+    from repro_torch.kernels.gather_xor import indices_from_mask
+
+    servers = range(len(planned.routed.servers))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for pos in servers:
+        planned.exec_plan(planned.routed.payload[pos])
+    torch.cuda.synchronize()
+    extra = {"phase": "breakdown", "of": label,
+             "answers_one_sync_s": time.perf_counter() - t,
+             "exec_plan": planned.exec_plan.describe()}
+    masks0 = planned.routed.payload[0]
+    m_budget = planned.exec_plan.m_budget
+    extra["answer_ms_per_server"] = time_ms(
+        lambda: planned.exec_plan(masks0), iters=5)
+    if m_budget is not None:
+        extra["indices_from_mask_ms"] = time_ms(
+            lambda: indices_from_mask(masks0, m_budget), iters=5)
+    stacked = torch.stack([
+        planned.exec_plan(planned.routed.payload[pos]) for pos in servers])
+    extra["reconstruct_ms"] = time_ms(
+        lambda: pipe.router.finalize(planned.routed, stacked), iters=5)
+    emit(extra)
 
 
 def device_split(fn, groups):
@@ -391,6 +460,130 @@ def parity_bound(q, n, b, out_bytes):
     bytes_s = (q * n + n * b + out_bytes) / HBM_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s > bytes_s else "bytes")
+
+
+def shuffled_ids(idx, rng):
+    """The same ids in another order within each row, with duplicates (a
+    pair of extra copies of some ids, which cancel) and -1 between them:
+    index rows that are not ascending, which gather_xor walks per query."""
+    q, m = idx.shape
+    g = torch.Generator(device=idx.device).manual_seed(
+        int(rng.integers(1 << 30)))
+    perm = torch.argsort(torch.rand((q, m), generator=g, device=idx.device),
+                         dim=1)
+    out = torch.gather(idx, 1, perm)
+    out[:, 5::97] = -1
+    dup = out[:, 1::61].clone()
+    out[:, 2::61][:, : dup.shape[1]] = dup[:, : out[:, 2::61].shape[1]]
+    return out.contiguous()
+
+
+def check_gather(db, q, theta, rng, dev, sweep):
+    """gather_xor.cu at one batch of q Sparse-PIR masks over the CT store:
+    on the ascending ids the compaction emits (the serving path's) and on
+    the same ids shuffled with duplicates and -1 inside (the walk), each
+    bit for bit against the plain version, timed beside the dense fold on
+    the same masks; with ``sweep``, every grid order x block_w in {32, 128}
+    timed and held bit-identical."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_xor import (
+        gather_xor, gather_xor_plain, indices_from_mask,
+    )
+    from repro_torch.kernels.xor_fold import xor_fold
+
+    n, w = db.shape
+    m = ops.sparse_index_budget(n, theta)
+    smask = random_mask(rng, q, n, theta, dev)
+    idx = indices_from_mask(smask, m)
+    distinct = int(torch.unique(idx[idx >= 0]).numel())
+    # the distinct live rows, the index rows and the answers, moved once
+    bound = ((distinct * w * 4 + q * m * 4 + q * w * 4) / HBM_BYTES_PER_S
+             * 1e3, "bytes")
+    row = check_kernel(
+        "gather_xor",
+        {"n": n, "W": w, "q": q, "m": m, "ids": "ascending",
+         "distinct_rows": distinct, "block_w": 128, "grid_order": "qwm"},
+        lambda: gather_xor(db, idx), lambda: gather_xor_plain(db, idx),
+        bound, "gather_xor.cu", "src/repro/kernels/gather_xor.py:97",
+        plain_iters=1)
+    # the index matrix is the compaction of the mask: the gather over it
+    # must equal the dense fold of the same mask
+    if max_abs_err(gather_xor(db, idx), xor_fold(db, smask)) != 0:
+        raise AssertionError("gather_xor(indices_from_mask) != xor_fold")
+    row["dense_fold_same_masks_ms"] = time_ms(lambda: xor_fold(db, smask))
+    mess = shuffled_ids(idx, rng)
+    err = max_abs_err(gather_xor(db, mess), gather_xor_plain(db, mess))
+    if err != 0:
+        raise AssertionError(f"gather_xor q={q} on shuffled ids differs from "
+                             f"the plain version ({err})")
+    row["shuffled"] = {"ids": "shuffled, duplicated, -1 inside",
+                       "max_abs_err": err,
+                       "ms": time_ms(lambda: gather_xor(db, mess))}
+    if sweep:
+        want = gather_xor(db, idx)
+        row["schedules_ms"] = {}
+        for go in ("qwm", "wqm"):
+            for bw in (32, 128):
+                if max_abs_err(gather_xor(db, idx, block_w=bw, grid_order=go),
+                               want) != 0:
+                    raise AssertionError(f"gather_xor {go}/{bw} differs")
+                row["schedules_ms"][f"{go}/{bw}"] = time_ms(
+                    lambda: gather_xor(db, idx, block_w=bw, grid_order=go))
+        del want
+    del smask, idx, mess
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_indices_from_mask(n, theta, rng, dev):
+    """indices_from_mask.cu at the lookup path's masks ([8, n] uint8, m =
+    the Sparse-PIR budget) and the multi path's ([32, n]), timed against
+    the mask and id bytes; held bit for bit against the plain version
+    there and on edge cases: a truncating m, an all-zero and an all-one
+    row, n off the kernel's 8192-column tile, bool and int32 masks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_xor import (
+        indices_from_mask, indices_from_mask_plain,
+    )
+
+    m = ops.sparse_index_budget(n, theta)
+
+    def held(mask, m_):
+        err = max_abs_err(indices_from_mask(mask, m_),
+                          indices_from_mask_plain(mask, m_))
+        if err != 0:
+            raise AssertionError(f"indices_from_mask {tuple(mask.shape)} "
+                                 f"{mask.dtype} m={m_}: kernel differs from "
+                                 f"the plain version ({err})")
+        return err
+
+    rows = []
+    for q in (8, 32):
+        mask = random_mask(rng, q, n, theta, dev)
+        rows.append(check_kernel(
+            "indices_from_mask",
+            {"q": q, "n": n, "m": m, "mask_dtype": "uint8", "theta": theta},
+            lambda: indices_from_mask(mask, m),
+            lambda: indices_from_mask_plain(mask, m),
+            ((q * n + q * m * 4) / HBM_BYTES_PER_S * 1e3, "bytes"),
+            "indices_from_mask.cu",
+            "src/repro/kernels/gather_xor.py:107 (no TPU kernel: jnp.argsort)",
+            plain_iters=2))
+        del mask
+    edge = random_mask(rng, 6, n - 3, theta, dev)  # n - 3: off the tile
+    edge[0] = 0
+    edge[-1] = 1
+    edge[2, ::5] *= 2
+    cases = {"truncating_m": held(edge, m // 4), "budget_m": held(edge, m),
+             "m_eq_n": held(edge, n - 3), "bool": held(edge.bool(), m // 4),
+             "int32": held(edge.to(torch.int32), m)}
+    rows[0]["at_q32"] = {k: rows[1][k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    rows[0]["edge_cases"] = {"n": n - 3, "rows": "all zero, all one, "
+                             "values 2", "max_abs_err": cases}
+    del edge
+    torch.cuda.empty_cache()
+    return rows[0]
 
 
 def check_parity(pmask, planes, planes_rows, extra, iters, plain_iters,
@@ -937,9 +1130,7 @@ def main() -> int:
         fused_multi_gather_fold, fused_multi_gather_fold_plain,
         fused_smem_budget, jagged_row_mask,
     )
-    from repro_torch.kernels.gather_xor import (
-        gather_xor, gather_xor_plain, indices_from_mask,
-    )
+    from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
     from repro_torch.kernels.parity_matmul import (
         parity_matmul, parity_matmul_packed,
     )
@@ -963,6 +1154,7 @@ def main() -> int:
         "scatter_rows": scatter_rows,
         "fused_multi_gather_fold": fused_multi_gather_fold,
         "flash_attention_fwd": flash_attention_fwd,
+        "indices_from_mask": indices_from_mask,
     }
 
     def reset_counts():
@@ -1028,37 +1220,25 @@ def main() -> int:
     del bdb, bmask, at_bert4rec
     torch.cuda.empty_cache()
 
-    m = ops.sparse_index_budget(n, cfg.theta)
-    smask = random_mask(rng, q, n, cfg.theta, dev)
-    idx = indices_from_mask(smask, m)
-    distinct = int(torch.unique(idx[idx >= 0]).numel())
-    rows.append(check_kernel(
-        "gather_xor",
-        {"n": n, "W": w, "q": q, "m": m, "distinct_rows": distinct,
-         "block_w": 128, "grid_order": "qwm", "m_split_atomic_xor": True},
-        lambda: gather_xor(store.packed, idx),
-        lambda: gather_xor_plain(store.packed, idx),
-        ((distinct * w * 4 + q * m * 4 + q * w * 4) / HBM_BYTES_PER_S * 1e3,
-         "bytes"),
-        "gather_xor.cu", "src/repro/kernels/gather_xor.py:97",
-    ))
-    # the index matrix is the prefix-sum compaction of the mask: the
-    # gather over it must equal the dense fold of the same mask
-    if max_abs_err(gather_xor(store.packed, idx),
-                   xor_fold(store.packed, smask)) != 0:
-        raise AssertionError("gather_xor(indices_from_mask) != xor_fold")
-    # what the dense fold takes on the same sparse masks (it needs no index
-    # compaction): the yardstick for the planner's gather-vs-fold prior
-    rows[-1]["dense_fold_same_masks_ms"] = time_ms(
-        lambda: xor_fold(store.packed, smask))
-    for go in ("qwm", "wqm"):
-        for bw in (32, 128):
-            if max_abs_err(
-                gather_xor(store.packed, idx, block_w=bw, grid_order=go),
-                gather_xor(store.packed, idx),
-            ) != 0:
-                raise AssertionError(f"gather_xor {go}/{bw} differs")
-    del mask, smask, idx
+    # gather_xor at the lookup path's batch (q 8), serve_multi_ct's flat
+    # bucket (q 32) and one query; the row is q 8's, the others ride along
+    gather_rows = [check_gather(store.packed, qg, cfg.theta, rng, dev,
+                                sweep=qg == 8) for qg in (8, 32, 1)]
+    for key, r in (("at_q32", gather_rows[1]), ("at_q1", gather_rows[2])):
+        gather_rows[0][key] = {k: r[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "dense_fold_same_masks_ms", "shuffled")}
+    gather_rows[0]["build"] = [
+        {k: e[k] for k in ("entry", "registers", "smem_bytes",
+                           "spill_store_bytes", "spill_load_bytes")}
+        for e in report["kernels"] if e["source"] == "gather_xor.cu"]
+    rows.append(gather_rows[0])
+    rows.append(check_indices_from_mask(n, cfg.theta, rng, dev))
+    rows[-1]["build"] = [
+        {k: e[k] for k in ("entry", "registers", "smem_bytes",
+                           "spill_store_bytes", "spill_load_bytes")}
+        for e in report["kernels"] if e["source"] == "indices_from_mask.cu"]
+    del mask
 
     # fused: the reduced config's shape (its serving path) and the largest
     # n the shared-memory gate admits at the full record width
@@ -1312,7 +1492,9 @@ def main() -> int:
                            "device_ms", "library_ms", "library_ms_int8",
                            "max_abs_err", "uint8_form", "rows_layout",
                            "at_bert4rec", "at_gate", "at_full_width",
-                           "at_ct_scale", "build", "sass",
+                           "at_ct_scale", "at_q32", "at_q1", "shuffled",
+                           "schedules_ms", "dense_fold_same_masks_ms",
+                           "edge_cases", "build", "sass",
                            "duplicates_last_write", "jagged", "operand_sets")
          if k in r} for r in rows]})
 
@@ -1332,8 +1514,9 @@ def main() -> int:
     deferred = []
 
     def serve(label, cfg_, store_, flushes, batch, expect_kernel,
-              expect_path, backend=None, breakdown=False):
+              expect_path, backend=None, breakdown=False, expect_also=()):
         kw = {"backend": backend} if backend is not None else {}
+        at_start = {k: f_.launches for k, f_ in wrappers.items()}
         pipe = pir_ct.make_serving_pipeline(
             cfg_, store=store_, device=dev, seed=3, **kw)
         times = []
@@ -1354,8 +1537,16 @@ def main() -> int:
                     raise AssertionError(
                         f"{label}: wrong record for index {int(i)}")
 
+        def per_batch(before, what):
+            for k in (expect_kernel,) + tuple(expect_also):
+                grew = wrappers[k].launches - before[k]
+                if grew != cfg_.d:
+                    raise AssertionError(
+                        f"{label}: {k} launched {grew} times in {what}, "
+                        f"expected d={cfg_.d}")
+
         for f in range(flushes):
-            before = wrappers[expect_kernel].launches
+            before = {k: f_.launches for k, f_ in wrappers.items()}
             picks = submit_batch()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1364,11 +1555,7 @@ def main() -> int:
             times.append(time.perf_counter() - t)
             check(out, picks)
             served += batch
-            grew = wrappers[expect_kernel].launches - before
-            if grew != cfg_.d:
-                raise AssertionError(
-                    f"{label}: {expect_kernel} launched {grew} times in one "
-                    f"batch, expected d={cfg_.d}")
+            per_batch(before, "one batch")
         if pipe.backend.path_counts[expect_path] != cfg_.d * flushes:
             raise AssertionError(f"{label}: {pipe.backend.path_counts}")
         line = {
@@ -1384,7 +1571,7 @@ def main() -> int:
         if breakdown:
             # one more batch through the pipeline's own entry points, cut
             # into its phases with a synchronisation after each
-            before = wrappers[expect_kernel].launches
+            before = {k: f_.launches for k, f_ in wrappers.items()}
             picks = submit_batch()
             cut = pipe.take_batch()
             torch.cuda.synchronize()
@@ -1397,22 +1584,21 @@ def main() -> int:
             torch.cuda.synchronize()
             execute_s = time.perf_counter() - t
             check({r.client: a for r, a in results}, picks)
-            grew = wrappers[expect_kernel].launches - before
-            if grew != cfg_.d:
-                raise AssertionError(
-                    f"{label}: {expect_kernel} launched {grew} times in the "
-                    f"batch cut into phases, expected d={cfg_.d}")
+            per_batch(before, "the batch cut into phases")
             line["breakdown"] = {"plan_s": plan_s, "execute_s": execute_s}
             line["launches"] = {k: f_.launches for k, f_ in wrappers.items()}
             # steps of this batch re-run outside the entry points are
             # measurement, not the main path: they wait until the main
             # path's launch counts have been read
             deferred.append((label, pipe, planned))
+        line["launches_this_phase"] = {
+            k: f_.launches - at_start[k] for k, f_ in wrappers.items()
+            if f_.launches != at_start[k]}
         emit(line)
 
     online = dataclasses.replace(cfg, query_batch=8)
     serve("serve_sparse_ct", online, store, 2, 8, "gather_xor", "sparse",
-          breakdown=True)
+          breakdown=True, expect_also=("indices_from_mask",))
     serve("serve_chor_ct", dataclasses.replace(online, scheme="chor"),
           store, 2, 8, "xor_fold", "fold", breakdown=True)
     serve("serve_reduced_sparse", red, small, 2, 8, "fused_gather_fold",
@@ -1426,8 +1612,8 @@ def main() -> int:
     # the main path ends here: read the wrappers' counts before any launch
     # made only to measure
     by_path = {"lookup": read_counts()}
-    for name in ("xor_fold", "gather_xor", "fused_gather_fold",
-                 "parity_matmul_packed"):
+    for name in ("xor_fold", "gather_xor", "indices_from_mask",
+                 "fused_gather_fold", "parity_matmul_packed"):
         if by_path["lookup"][name] <= 0:
             raise AssertionError(f"main path never launched {name}")
 
@@ -1445,12 +1631,23 @@ def main() -> int:
     serve_live(pir_ct, online, store, dev, rng, pir_delta_batch, Delta,
                VersionedStore, scatter_rows, scatter_ms)
     by_path["serve_live_ct"] = read_counts()
+    for name in ("gather_xor", "indices_from_mask"):
+        if by_path["serve_live_ct"][name] <= 0:
+            raise AssertionError(f"serve_live_ct never launched {name}")
 
     # ---------------------------------------------- 8 multi-index requests
     reset_counts()
-    serve_multi("serve_multi_ct", pir_ct, dataclasses.replace(
-        online, query_batch=32), store, dev, rng, gather_xor, "sparse")
+    multi_batch = serve_multi(
+        "serve_multi_ct", pir_ct, dataclasses.replace(online, query_batch=32),
+        store, dev, rng, gather_xor, "sparse", breakdown=True,
+        also=(indices_from_mask,))
     by_path["serve_multi_ct"] = read_counts()
+    # its per-server split now, so that its 3.2 GB of masks do not sit
+    # under the later phases' peak memory
+    per_server_split(*multi_batch)
+    del multi_batch
+    gc.collect()
+    torch.cuda.empty_cache()
     reset_counts()
     serve_multi("serve_multi_reduced", pir_ct, dataclasses.replace(
         red, query_batch=32), small, dev, rng, fused_multi_gather_fold,
@@ -1475,31 +1672,9 @@ def main() -> int:
         r["launches"] = by_path[path][counter]
         r["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
 
-    # the d per-server answers of a planned batch enqueued back to back
-    # with ONE synchronisation (against answer_batch's d), and the
-    # plain-torch steps around the kernel, per server / per batch
+    # the per-server splits of the lookup batches cut into phases
     for label, pipe, planned in deferred:
-        servers = range(len(planned.routed.servers))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for pos in servers:
-            planned.exec_plan(planned.routed.payload[pos])
-        torch.cuda.synchronize()
-        extra = {"phase": "breakdown", "of": label,
-                 "answers_one_sync_s": time.perf_counter() - t,
-                 "exec_plan": planned.exec_plan.describe()}
-        masks0 = planned.routed.payload[0]
-        m_budget = planned.exec_plan.m_budget
-        if m_budget is not None:
-            extra["indices_from_mask_ms"] = time_ms(
-                lambda: indices_from_mask(masks0, m_budget), iters=5)
-        stacked = torch.stack([
-            planned.exec_plan(planned.routed.payload[pos])
-            for pos in servers])
-        extra["reconstruct_ms"] = time_ms(
-            lambda: pipe.router.finalize(planned.routed, stacked), iters=5)
-        del stacked
-        emit(extra)
+        per_server_split(label, pipe, planned)
     del deferred
 
     # ------------------------------------------------------------ 7 verdict

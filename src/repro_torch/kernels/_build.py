@@ -32,6 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "xor_fold.cu",
     "gather_xor.cu",
+    "indices_from_mask.cu",
     "fused_gather_fold.cu",
     "fused_multi_gather_fold.cu",
     "parity_matmul.cu",
@@ -51,7 +52,10 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (every one returns cudaGetLastError())
 _SIGNATURES = {
     "pir_xor_fold": (_P, _P, _P, _I, _I, _I, _P),
-    "pir_gather_xor": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pir_gather_xor": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "pir_indices_from_mask": (_P, _P, _P, _I, _I, _I, _P),
     "pir_fused_gather_fold": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pir_fused_multi_gather_fold": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,

@@ -53,10 +53,20 @@ def parity_matmul_plain(mask: torch.Tensor, planes: torch.Tensor) -> torch.Tenso
     out = torch.zeros((q, planes.shape[1]), dtype=torch.uint8,
                       device=mask.device)
     for lo in range(0, n, _PLAIN_CHUNK_N):
-        a = (mask[:, lo : lo + _PLAIN_CHUNK_N] != 0).to(torch.float32)
-        b = (planes[lo : lo + _PLAIN_CHUNK_N] != 0).to(torch.float32)
+        a = _low_bit(mask[:, lo : lo + _PLAIN_CHUNK_N]).to(torch.float32)
+        b = _low_bit(planes[lo : lo + _PLAIN_CHUNK_N]).to(torch.float32)
         out ^= torch.remainder(a @ b, 2.0).to(torch.uint8)
     return out
+
+
+def _low_bit(x: torch.Tensor) -> torch.Tensor:
+    """An operand's parity: ``x & 1`` for an integer dtype (the reference
+    reduces the product of the values as they are mod 2, which only their
+    low bits decide), nonzero for bool and floating dtypes (0/1 by
+    contract)."""
+    if x.dtype == torch.bool or x.is_floating_point():
+        return x != 0
+    return x & 1
 
 
 def parity_matmul_packed_plain(mask: torch.Tensor,
@@ -66,9 +76,10 @@ def parity_matmul_packed_plain(mask: torch.Tensor,
 
 
 def _as_bits(x: torch.Tensor) -> torch.Tensor:
-    """uint8 0/1 as it lies; any other dtype converted (nonzero -> 1)."""
+    """uint8 as it lies (the int32 sums of its products have the parity of
+    its low bits'); any other dtype as its low bit (:func:`_low_bit`)."""
     if x.dtype != torch.uint8:
-        x = (x != 0).to(torch.uint8)
+        x = _low_bit(x).to(torch.uint8)
     return x
 
 
@@ -143,10 +154,10 @@ def _check_shapes(mask: torch.Tensor, planes: torch.Tensor) -> None:
 def parity_matmul(mask: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     """mask: [q, n] {0,1}; planes: [n, B] {0,1} -> [q, B] uint8 bits.
 
-    Inputs may be any integer/float/bool dtype holding 0/1; anything but
-    uint8 is converted to uint8 first (nonzero -> 1). uint8 inputs are
-    multiplied as they are, as the reference's kernel does: they hold
-    0/1."""
+    Inputs may be any integer/float/bool dtype. Integer operands count by
+    their values mod 2, as the reference's product of the values mod 2
+    does (uint8 reaches the tensor cores as it is, other integers as
+    ``x & 1``); bool and float operands hold 0/1 (nonzero -> 1)."""
     _check_shapes(mask, planes)
     if mask.device.type == "cpu":
         return parity_matmul_plain(mask, planes)

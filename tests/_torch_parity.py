@@ -33,3 +33,24 @@ def seeded_bytes(n: int, rb: int, seed: int) -> np.ndarray:
     package."""
     rng = np.random.default_rng(seed)
     return rng.integers(0, 256, size=(n, rb), dtype=np.uint8)
+
+
+def messy_index_rows(rng, n: int, q: int, m: int, kind: str) -> np.ndarray:
+    """[q, m] int32 index rows that are not ascending, as no compaction
+    emits them: ``shuffled`` ids, ``duplicated`` ids (which cancel in
+    pairs), or ``padded`` rows with -1 between the ids; the last row is
+    padding alone."""
+    idx = np.full((q, m), -1, dtype=np.int32)
+    for r in range(q - 1):
+        ids = rng.choice(n, size=int(rng.integers(1, max(2, m // 2))),
+                         replace=False)
+        if kind == "duplicated":
+            ids = np.concatenate([ids, ids[: len(ids) // 2],
+                                  ids[: len(ids) // 3]])
+        ids = rng.permutation(ids)[:m]
+        if kind == "padded":
+            spots = np.sort(rng.choice(m, size=len(ids), replace=False))
+            idx[r, spots] = ids
+        else:
+            idx[r, : len(ids)] = ids
+    return idx

@@ -25,6 +25,7 @@ from repro_torch.kernels.gather_xor import (
     gather_xor,
     gather_xor_plain,
     indices_from_mask,
+    indices_from_mask_plain,
 )
 from repro_torch.kernels.parity_matmul import (
     parity_matmul,
@@ -34,6 +35,8 @@ from repro_torch.kernels.parity_matmul import (
 )
 from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
 from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
+
+from _torch_parity import messy_index_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +129,129 @@ def test_all_padding_rows_answer_zero(cuda_device):
                 fused_gather_fold(store.packed, idx)):
         torch.cuda.synchronize()
         assert int(got.abs().sum()) == 0
+
+
+GATHER_CASES = [
+    # (n, record_bytes, q): W a multiple of 4 or not; 1, 8 (one group of
+    # 8), 9-32 (one group of 32) and 70 queries (three groups)
+    (5000, 1536, 8), (4099, 1532, 9), (3000, 96, 1), (2500, 52, 32),
+    (777, 12, 70), (20_000, 64, 8),
+]
+
+
+def _gather_idx(store, q, kind, device, seed):
+    """Ascending ids (the compaction of a θ = 0.25 mask, with -1 after
+    them), or rows that are not ascending; half of them ascending beside
+    half shuffled in ``mixed``."""
+    n = store.n
+    m = min(n, int(0.3 * n) + 8)
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy((rng.random((q, n)) < 0.25).astype(np.uint8))
+    asc = indices_from_mask(mask.to(device), m)
+    if kind == "ascending":
+        return asc
+    if kind == "mixed":
+        mess = torch.from_numpy(messy_index_rows(rng, n, q, m, "shuffled"))
+        rows = torch.arange(q, device=device)[:, None] % 2 == 1
+        return torch.where(rows, mess.to(device), asc).contiguous()
+    return torch.from_numpy(messy_index_rows(rng, n, q, m, kind)).to(device)
+
+
+@pytest.mark.parametrize("n,rb,q", GATHER_CASES)
+@pytest.mark.parametrize("kind", ["ascending", "shuffled", "duplicated",
+                                  "padded", "mixed"])
+@pytest.mark.parametrize("grid_order", ["qwm", "wqm"])
+@pytest.mark.parametrize("block_w", [8, 32, 128])
+def test_gather_xor_kernel_on_every_id_order(cuda_device, n, rb, q, kind,
+                                             grid_order, block_w):
+    """The range blocks (ascending rows) and the walk blocks (any other
+    row) against the plain version, in one launch."""
+    store, _ = _case(n, rb, 1, cuda_device, seed=n + q)
+    idx = _gather_idx(store, q, kind, cuda_device, seed=q)
+    launches = gather_xor.launches
+    got = gather_xor(store.packed, idx, block_w=block_w,
+                     grid_order=grid_order)
+    assert gather_xor.launches == launches + 1
+    _same(got, gather_xor_plain(store.packed, idx))
+
+
+def test_gather_xor_kernel_ids_outside_the_store_are_skipped(cuda_device):
+    """Ids >= n lie outside the contract; the kernel never reads them, in
+    an ascending row (their tail) or any other."""
+    store, _ = _case(1000, 64, 1, cuda_device)
+    idx = torch.tensor([[3, 9, 500, 999, 1000, 5000, -1, -1],
+                        [3, 1000, 9, -1, 500, 2**31 - 1, 999, 9]],
+                       dtype=torch.int32, device=cuda_device)
+    live = torch.where(idx < 1000, idx, -1)
+    _same(gather_xor(store.packed, idx), gather_xor_plain(store.packed, live))
+
+
+@pytest.mark.parametrize("kind", ["ascending", "mixed"])
+def test_gather_xor_atomic_combine_gives_the_same_bytes_every_run(
+        cuda_device, kind):
+    store, _ = _case(50_000, 1536, 1, cuda_device, seed=2)
+    idx = _gather_idx(store, 8, kind, cuda_device, seed=3)
+    first = gather_xor(store.packed, idx)
+    for _ in range(3):
+        _same(gather_xor(store.packed, idx), first)
+    for go in ("qwm", "wqm"):
+        for bw in (8, 32, 128):
+            _same(gather_xor(store.packed, idx, block_w=bw, grid_order=go),
+                  first)
+
+
+@pytest.mark.parametrize("n", [8191, 8192, 8193, 3 * 8192 - 5, 3 * 8192,
+                               3 * 8192 + 17, 100_003])
+@pytest.mark.parametrize("m_frac", [1.0, 0.3, 0.1, 0.01])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bool, torch.int32])
+def test_indices_from_mask_kernel_equals_plain(cuda_device, n, m_frac,
+                                               dtype):
+    """Around the kernel's 8192-column tile, with an all-zero row, an
+    all-one row, a truncating m (well below the rows' weight 0.25 n) and
+    m = n; uint8 rows that start off 16 bytes when n is odd."""
+    rng = np.random.default_rng(n)
+    mask = torch.from_numpy((rng.random((6, n)) < 0.25).astype(np.uint8))
+    mask[0] = 0
+    mask[-1] = 1
+    mask[2, ::7] *= 3  # values other than 1 select too
+    m = max(1, int(m_frac * n))
+    card = mask.to(cuda_device).to(dtype)
+    launches = indices_from_mask.launches
+    got = indices_from_mask(card, m)
+    assert indices_from_mask.launches == launches + 1
+    _same(got, indices_from_mask_plain(card, m))
+    assert torch.equal(got.cpu(), indices_from_mask(mask, m))
+
+
+def test_indices_from_mask_launches_only_for_a_card_mask(cuda_device):
+    mask = torch.from_numpy(
+        (np.random.default_rng(0).random((4, 3000)) < 0.25).astype(np.uint8))
+    launches = indices_from_mask.launches
+    host = indices_from_mask(mask, 900)
+    assert indices_from_mask.launches == launches
+    card = indices_from_mask(mask.to(cuda_device), 900)
+    assert indices_from_mask.launches == launches + 1
+    _same(card.cpu(), host)
+    # the planner's sparse forms reach it for a store on the card
+    store, _ = _case(3000, 64, 1, cuda_device)
+    before = (indices_from_mask.launches, gather_xor.launches)
+    ops.server_answer_sparse(store.packed, mask.to(cuda_device), theta=0.3)
+    assert (indices_from_mask.launches, gather_xor.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("fn", [parity_matmul, parity_matmul_packed])
+def test_parity_kernel_counts_operands_by_their_values_mod_2(cuda_device,
+                                                             mask_dtype, fn):
+    """Operand values in {0, 1, 2, 3}: the card gives the CPU's bits."""
+    rng = np.random.default_rng(11)
+    mask = torch.from_numpy(rng.integers(0, 4, size=(70, 3000))).to(
+        mask_dtype)
+    planes = torch.from_numpy(rng.integers(0, 4, size=(3000, 96)).astype(
+        np.uint8))
+    want = fn(mask, planes)
+    _same(fn(mask.to(cuda_device), planes.to(cuda_device)).cpu(), want)
 
 
 @pytest.mark.parametrize("n,rb,q", SHAPES + [(3000, 96, 70)])

@@ -30,7 +30,12 @@ from repro_torch.kernels.fused import (
     fused_gather_fold,
     fused_smem_budget,
 )
-from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
+from repro_torch.kernels.gather_xor import (
+    gather_schedule,
+    gather_xor,
+    indices_from_mask,
+    indices_from_mask_plain,
+)
 from repro_torch.kernels.parity_matmul import (
     _planes_storage,
     _rows_on_16_bytes,
@@ -41,7 +46,7 @@ from repro_torch.kernels.parity_matmul import (
 )
 from repro_torch.kernels.xor_fold import xor_fold
 
-from _torch_parity import seeded_mask, words_t2n
+from _torch_parity import messy_index_rows, seeded_mask, words_t2n
 
 SHAPES = [
     # (n records, record_bytes, q queries)
@@ -198,6 +203,78 @@ def test_operands_reach_the_kernel_on_16_byte_rows(rows, cols, offset):
         assert got is x
 
 
+@pytest.mark.parametrize("mask_dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("packed", [False, True])
+def test_parity_counts_integer_operands_by_their_values_mod_2(mask_dtype,
+                                                             packed):
+    """Operand values in {0, 1, 2, 3}: the reference reduces the product
+    of the values as they are mod 2, so a 2 counts as 0 and a 3 as 1."""
+    rng = np.random.default_rng(31)
+    q, n, b = 5, 300, 40
+    mask = rng.integers(0, 4, size=(q, n)).astype(mask_dtype)
+    planes = rng.integers(0, 4, size=(n, b)).astype(np.uint8)
+    want = np.asarray(ref_oracles.parity_matmul_ref(jnp.asarray(mask),
+                                                    jnp.asarray(planes)))
+    tmask, tplanes = torch.from_numpy(mask), torch.from_numpy(planes)
+    if packed:
+        got = parity_matmul_packed(tmask, tplanes)
+        _eq(got, ref_packing.pack_bits(jnp.asarray(want)))
+    else:
+        np.testing.assert_array_equal(parity_matmul(tmask, tplanes).numpy(),
+                                      want)
+    # the low bits alone give the same answer: what the card multiplies
+    low = parity_matmul_plain(tmask & 1, tplanes & 1)
+    np.testing.assert_array_equal(low.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "duplicated", "padded"])
+@pytest.mark.parametrize("grid_order", ["qwm", "wqm"])
+def test_gather_xor_on_unordered_ids_equals_reference(kind, grid_order):
+    """Index rows as no compaction emits them: every occurrence folds, so
+    a duplicated id cancels, and -1 may sit anywhere."""
+    rs, ts, _ = _case(257, 20, 6, seed=13)
+    idx = messy_index_rows(np.random.default_rng(17), 257, 6, 96, kind)
+    got = gather_xor(ts.packed, torch.from_numpy(idx), block_w=64,
+                     grid_order=grid_order)
+    _eq(got, ref_gather_xor(rs.packed, jnp.asarray(idx), block_w=64,
+                            grid_order=grid_order, interpret=True))
+    _eq(got, ref_oracles.gather_xor_ref(rs.packed, jnp.asarray(idx)))
+    assert int(got[-1].abs().sum()) == 0
+    if kind == "duplicated":
+        # the rows named an odd number of times, each once, ascending
+        odd = [np.sort(np.unique(r[r >= 0])[np.unique(
+            r[r >= 0], return_counts=True)[1] % 2 == 1]) for r in idx]
+        once = np.full_like(idx, -1)
+        for r, ids in enumerate(odd):
+            once[r, : len(ids)] = ids
+        assert torch.equal(got, gather_xor(ts.packed, torch.from_numpy(once)))
+
+
+@pytest.mark.parametrize("n,w,q,m,block_w,sms", [
+    (10**6, 384, 8, 252_600, 128, 132), (10**6, 384, 32, 252_600, 32, 132),
+    (10**6, 384, 1, 252_600, 128, 132), (2048, 16, 8, 632, 128, 132),
+    (5, 3, 2, 4, 8, 1), (2**31 - 1, 1, 1, 1, 128, 132),
+    (10**7, 8, 70, 10**5, 1, 16)])
+def test_gather_schedule_fits_the_grid(n, w, q, m, block_w, sms):
+    """Ranges of whole 256-row multiples cover n (none for one query); the
+    walk chunks cover m; ranges and walk chunks share the grid's y axis
+    (at most 65535); a range's query sets fit shared memory."""
+    s = gather_schedule(n, w, q, m, block_w, sms)
+    assert s["rows"] % 256 == 0 and s["rows"] >= 256
+    if q == 1:  # one query shares no row: its list is walked
+        assert s["ranges"] == 0
+    else:
+        assert s["ranges"] == -(-n // s["rows"])
+        assert (s["ranges"] - 1) * s["rows"] < n <= s["ranges"] * s["rows"]
+    assert s["ranges"] + s["walk_chunks"] <= 65535
+    assert (s["walk_chunks"] - 1) * s["walk_per"] < m
+    assert m <= s["walk_chunks"] * s["walk_per"]
+    if n <= 8192 * (65535 - s["walk_chunks"]):
+        assert s["rows"] <= 8192
+    # sel[] (4 bytes a row) and the live list (2) fit a Hopper block
+    assert s["rows"] * 6 + 4096 <= 232_448 and s["rows"] <= 65536
+
+
 @pytest.mark.parametrize("n,rb,q", SHAPES + NONPOW2_SHAPES)
 def test_gather_xor_equals_reference(n, rb, q):
     rs, ts, mask = _case(n, rb, q, seed=n)
@@ -251,6 +328,41 @@ def test_indices_from_mask_round_trip_and_truncation_parity(q, n, m):
     for row in range(q):
         live = got[row][got[row] >= 0].tolist()
         assert live == np.nonzero(mask[row])[0][:m_eff].tolist()
+
+
+def _edge_mask(q, n, seed):
+    """Seeded rows plus an all-zero and an all-one row."""
+    mask = seeded_mask(q, n, seed)
+    mask[0] = 0
+    mask[-1] = 1
+    return mask
+
+
+@pytest.mark.parametrize("q,n,m", [(5, 300, 300), (5, 300, 40), (4, 97, 97),
+                                   (3, 64, 1), (6, 1000, 450)])
+@pytest.mark.parametrize("tdtype,jdtype", MASK_DTYPES)
+def test_indices_from_mask_edges_equal_reference(q, n, m, tdtype, jdtype):
+    """All-zero and all-one rows, m = n and a truncating m, in every mask
+    dtype; the plain version is the wrapper's on the CPU."""
+    mask = _edge_mask(q, n, seed=n + m)
+    want = np.asarray(ref_indices_from_mask(
+        jnp.asarray(mask).astype(jdtype), m))
+    tmask = torch.from_numpy(mask).to(tdtype)
+    got = indices_from_mask(tmask, m)
+    assert got.dtype == torch.int32 and got.shape == (q, m)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, indices_from_mask_plain(tmask, m))
+    assert (got[0] == -1).all()
+    assert got[-1].tolist() == list(range(m))
+
+
+def test_indices_from_mask_counts_values_other_than_one():
+    """Any nonzero mask value selects, as the reference's ``mask != 0``."""
+    mask = np.array([[0, 2, 0, 255, 1, 7]], dtype=np.uint8)
+    got = indices_from_mask(torch.from_numpy(mask), 5)
+    assert got.tolist() == [[1, 3, 4, 5, -1]]
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref_indices_from_mask(jnp.asarray(mask), 5)))
 
 
 @pytest.mark.parametrize("n,rb,q", SHAPES + EDGE_SHAPES)
@@ -371,7 +483,8 @@ def test_wrappers_count_no_launch_on_the_cpu():
     """A launch counter moves only where a kernel is launched."""
     _, ts, mask = _case(32, 8, 2)
     before = (xor_fold.launches, gather_xor.launches,
-              fused_gather_fold.launches, parity_matmul.launches)
+              fused_gather_fold.launches, parity_matmul.launches,
+              indices_from_mask.launches)
     tmask = torch.from_numpy(mask)
     xor_fold(ts.packed, tmask)
     idx = indices_from_mask(tmask, 32)
@@ -379,7 +492,8 @@ def test_wrappers_count_no_launch_on_the_cpu():
     fused_gather_fold(ts.packed, idx)
     parity_matmul(tmask, ts.bitplanes())
     assert before == (xor_fold.launches, gather_xor.launches,
-                      fused_gather_fold.launches, parity_matmul.launches)
+                      fused_gather_fold.launches, parity_matmul.launches,
+                      indices_from_mask.launches)
 
 
 def test_shape_mismatch_raises():
