@@ -101,8 +101,9 @@ def random_mask(rng, q: int, n: int, density: float, device) -> torch.Tensor:
 
 
 def check_kernel(name, shape, kernel_fn, plain_fn, bound, source, replaces,
-                 library_fn=None, iters=10, plain_iters=2):
-    """Compare one kernel with its plain version and time both."""
+                 library_fn=None, iters=10, plain_iters=2, also=None):
+    """Compare one kernel with its plain version and time both; ``also``
+    takes the plain answer and returns more keys of the row."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -110,6 +111,7 @@ def check_kernel(name, shape, kernel_fn, plain_fn, bound, source, replaces,
     if err != 0:
         raise AssertionError(f"{name} {shape}: kernel differs from the plain "
                              f"version (max abs err {err}, tolerance 0)")
+    extra = also(want) if also is not None else {}
     del got, want
     bound_ms, bound_by = bound
     row = {
@@ -122,8 +124,59 @@ def check_kernel(name, shape, kernel_fn, plain_fn, bound, source, replaces,
         "library_ms": (
             None if library_fn is None else time_ms(library_fn, iters=3)
         ),
+        **extra,
     }
     return row
+
+
+def fold_forms(db, mask, want, iters=10):
+    """Each form of xor_fold.cu, forced through the wrapper's private launch
+    helper, held bit for bit against the plain answer ``want`` and timed;
+    with the form the wrapper picks at this batch."""
+    import importlib
+
+    fold = importlib.import_module("repro_torch.kernels.xor_fold")
+    forms = {}
+    for form in fold.FORMS:
+        err = max_abs_err(fold._launch(db, mask, form), want)
+        if err != 0:
+            raise AssertionError(f"xor_fold {form} form at q={mask.shape[0]} "
+                                 f"differs from the plain version ({err})")
+        forms[form] = {"max_abs_err": err, "ms": time_ms(
+            lambda: fold._launch(db, mask, form), iters=iters)}
+    return {"form": fold._form_for(mask.shape[0]), "forms": forms}
+
+
+def fold_switch_sweep(db, rng, dev, batches):
+    """The streaming form and the table form at each of its warp widths on
+    the CT store at density-0.5 masks of each batch size, held equal to
+    each other: where the wrapper's switches (``TABLE_MIN_QUERIES``,
+    ``TABLE_WIDE_MIN_QUERIES``) stand."""
+    import importlib
+
+    fold = importlib.import_module("repro_torch.kernels.xor_fold")
+    runs = {fold.STREAM: (fold.STREAM, None), **{
+        f"{fold.TABLE}_qw{qw}": (fold.TABLE, qw) for qw in fold.TABLE_WIDTHS}}
+    sweep = []
+    for q in batches:
+        mask = random_mask(rng, q, db.shape[0], 0.5, dev)
+        first = fold._launch(db, mask, fold.STREAM)
+        for name, (form, qw) in runs.items():
+            err = max_abs_err(fold._launch(db, mask, form, qw), first)
+            if err != 0:
+                raise AssertionError(f"xor_fold {name} differs from the "
+                                     f"streaming form at q={q} ({err})")
+        del first
+        sweep.append({
+            "q": q, "form": fold._form_for(q),
+            "table_qw": fold._table_width(q), **{
+                name + "_ms": time_ms(
+                    lambda: fold._launch(db, mask, form, qw), iters=5)
+                for name, (form, qw) in runs.items()}})
+        del mask
+    return {"table_min_queries": fold.TABLE_MIN_QUERIES,
+            "table_wide_min_queries": fold.TABLE_WIDE_MIN_QUERIES,
+            "batches": sweep}
 
 
 def serve_live(pir_ct, cfg, base, dev, rng, pir_delta_batch, Delta,
@@ -387,6 +440,40 @@ def device_split(fn, groups):
     return {"ms": split, "device_ms": busy, "wall_ms": wall * 1e3,
             "busy_share": busy / (wall * 1e3) if wall > 0 else None,
             "device_events": launches}
+
+
+def device_runs_ms(kernel_fn, library_fn, kernel_name, runs, calls=10):
+    """The card's time of one call of a kernel and of the library call on
+    the same operands, in ``runs`` turns of ``calls`` calls of each, all
+    in one torch.profiler session (back to back, sessions can lose a
+    run's events). The card's events, in order of start, fall into turns
+    by whether they are the kernel's; if they do not make 2 x ``runs``
+    turns, no time is given. Measurement only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            for fn in (kernel_fn, library_fn):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+    turns = []  # [is the kernel's, microseconds]
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        mine = kernel_name in e.name
+        if not turns or turns[-1][0] != mine:
+            turns.append([mine, 0.0])
+        turns[-1][1] += e.time_range.end - e.time_range.start
+    if len(turns) != 2 * runs:
+        return {"kernel_device_ms_runs": None, "library_device_ms_runs": None,
+                "device_turns_seen": len(turns)}
+    return {key: [us / 1e3 / calls for mine, us in turns if mine == want]
+            for key, want in (("kernel_device_ms_runs", True),
+                              ("library_device_ms_runs", False))}
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -727,11 +814,12 @@ def crossover(db, planes, buckets, rng, dev, configured):
 def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
                        ShardedBackend, never, read_counts, reset_counts):
     """CT-scale Chor (n = 10^6 x 1536 B, d = 100) in buckets of 128: two
-    flushes with the planner's own unforced fold/parity choice, two more
-    forced to parity (parity_min_batch=128) if it chose fold, then one
-    flush of the same traffic forced to fold as the comparison. Every
-    record is checked. Returns the phase's launch counts (the comparison
-    flush and the per-server timings come after they are read)."""
+    flushes with the planner's own unforced fold/parity choice, then two
+    flushes of the same traffic forced to the other path (parity_min_batch
+    =128 if it chose the fold, ``never`` if it chose parity), so that each
+    path is driven once. Every record is checked. Returns the launch counts
+    of the unforced and forced-parity runs (a forced-fold run and the
+    per-server timings come after they are read)."""
     chor = dataclasses.replace(cfg, scheme="chor", query_batch=128)
     batch = 128
 
@@ -746,6 +834,7 @@ def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         before = {k: w.launches for k, w in wrappers.items()}
+        forms_before = dict(wrappers["xor_fold"].kernel_launches)
         times = []
         for _ in range(flushes):
             picks = rng.integers(0, store.n, size=batch)
@@ -766,6 +855,12 @@ def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
         counts = dict(pipe.backend.path_counts)
         if counts[plan.path] != cfg.d * flushes:
             raise AssertionError(f"serve_chor_ct_b128 {label}: {counts}")
+        forms_ran = {f: c - forms_before[f] for f, c in
+                     wrappers["xor_fold"].kernel_launches.items()}
+        # a fold at bucket 128 takes the table form, every answer
+        if plan.path == "fold" and forms_ran["table"] != cfg.d * flushes:
+            raise AssertionError(f"serve_chor_ct_b128 {label}: xor_fold "
+                                 f"forms {forms_ran}")
         return pipe, {
             "run": label, "parity_min_batch": parity_min_batch,
             "path": plan.path, "exec_plan": plan.describe(),
@@ -774,6 +869,7 @@ def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
             "launches": {k: w.launches - before[k]
                          for k, w in wrappers.items()
                          if w.launches != before[k]},
+            "xor_fold_form_launches": forms_ran,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
             "memory_allocated_before": resident,
         }
@@ -806,28 +902,32 @@ def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
     del pipes, pipe
     gc.collect()
     torch.cuda.empty_cache()
-    pipe, line = run("forced_fold", 1, never)
-    answer_ms(pipe, line)
-    runs.append(line)
-    del pipe
-    gc.collect()
-    torch.cuda.empty_cache()
+    if runs[0]["path"] == "parity":
+        pipe, line = run("forced_fold", 2, never)
+        answer_ms(pipe, line)
+        runs.append(line)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
     emit({"phase": "serve_chor_ct_b128", "scheme": "chor", "n": store.n,
           "record_bytes": cfg.record_bytes, "d": cfg.d, "batch": batch,
           "planner_choice": runs[0]["path"],
-          "forced_parity_too": runs[0]["path"] != "parity", "runs": runs,
+          "forced_parity_too": runs[0]["path"] != "parity",
+          "forced_fold_too": runs[0]["path"] == "parity", "runs": runs,
           "parity_launches": counts["parity_matmul_packed"]})
     return counts
 
 
 def check_flash(label, bh, sq, d, dtype, causal, window, dev,
                 flash_attention_fwd, flash_attention_plain, plain_rows=None,
-                iters=10):
+                iters=10, device_runs=0):
     """The flash kernel at one operand set against its plain version
     (``FLASH_TOL``; bf16 operands once more cast to f32, held at 1e-5, so
     the tile loop and its skips are checked without the output's
     rounding), timed beside the plain version and PyTorch's
-    scaled_dot_product_attention on the same operands."""
+    scaled_dot_product_attention on the same operands; with
+    ``device_runs``, the card's time of one call of each (torch.profiler,
+    10 calls a run) in that many runs."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev).manual_seed(sq + d)
@@ -887,6 +987,8 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
 
+    device = (device_runs_ms(kernel, library, kernel_name, device_runs)
+              if device_runs else {})
     bound_ms, bound_by = flash_bound(bh, sq, sq, d, causal, window, dtype)
     # the same work's flops at the bf16 tensor-core peak, whatever the
     # operands' type: below bound_ms where the operands are f32
@@ -908,6 +1010,7 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
         "library_ms": time_ms(library, iters=iters),
         "library": ("scaled_dot_product_attention"
                     + (" (band mask)" if band is not None else "")),
+        **device,
     }
 
 
@@ -1083,7 +1186,10 @@ def serve_private_bert4rec(dev, card, flash, fold, read_counts,
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     spent = budget.spent_epsilon
-    if flash.launches != cfg.n_blocks or fold.launches != cfg.private_lookup_d:
+    # the d answers of the batch's 6400 lookups each take the table form
+    if (flash.launches != cfg.n_blocks
+            or fold.launches != cfg.private_lookup_d
+            or counts["xor_fold_table"] != cfg.private_lookup_d):
         raise AssertionError(f"serve_private_bert4rec: launches {counts}")
     plain = R.bert4rec_logits(model, cfg, seq)
     err = max_abs_err(private.view(torch.int32), plain.view(torch.int32))
@@ -1160,13 +1266,18 @@ def main() -> int:
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
-        for name in flash_attention_fwd.kernel_launches:
-            flash_attention_fwd.kernel_launches[name] = 0
+        for counts in (flash_attention_fwd.kernel_launches,
+                       xor_fold.kernel_launches):
+            for name in counts:
+                counts[name] = 0
 
     def read_counts():
-        # each wrapper's count, and flash_attention_fwd's by kernel
+        # each wrapper's count, flash_attention_fwd's by kernel and
+        # xor_fold's by form
         return {**{k: f_.launches for k, f_ in wrappers.items()},
-                **flash_attention_fwd.kernel_launches}
+                **flash_attention_fwd.kernel_launches,
+                **{f"xor_fold_{k}": c
+                   for k, c in xor_fold.kernel_launches.items()}}
 
     # ------------------------------------------------------------ 1 device
     smi = subprocess.run(
@@ -1196,15 +1307,22 @@ def main() -> int:
     rows = []
     q = 8
     mask = random_mask(rng, q, n, 0.5, dev)
+    # xor_fold: row 1 at the lookup path's batch (q 8, the streaming
+    # form), with the switch sweep between the forms; row 1' the private
+    # BERT4Rec path's operands (6400 queries over a 26 752-row store of 64
+    # words), riding along under "at_bert4rec"; row 1'' the CT store at a
+    # Chor bucket of 128 (the table form), its own row. Every row holds
+    # and times both forms.
     rows.append(check_kernel(
         "xor_fold", {"n": n, "W": w, "q": q, "density": 0.5},
         lambda: xor_fold(store.packed, mask),
         lambda: xor_fold_plain(store.packed, mask),
         fold_bound(store.packed, mask),
         "xor_fold.cu", "src/repro/kernels/xor_fold.py:79",
+        also=lambda want: fold_forms(store.packed, mask, want),
     ))
-    # the private BERT4Rec path's operands: 6400 queries over a 26 752-row
-    # store of 64 words; it rides along under "at_bert4rec"
+    rows[-1]["switch_sweep"] = fold_switch_sweep(
+        store.packed, rng, dev, (8, 9, 16, 32, 64, 96, 128, 256))
     bdb, bmask = bert4rec_fold_operands(dev)
     at_bert4rec = check_kernel(
         "xor_fold", {"n": bdb.shape[0], "W": bdb.shape[1],
@@ -1213,11 +1331,32 @@ def main() -> int:
                      / bmask.numel()},
         lambda: xor_fold(bdb, bmask), lambda: xor_fold_plain(bdb, bmask),
         fold_bound(bdb, bmask),
-        "xor_fold.cu", "src/repro/kernels/xor_fold.py:79", plain_iters=1)
+        "xor_fold.cu", "src/repro/kernels/xor_fold.py:79", plain_iters=1,
+        also=lambda want: fold_forms(bdb, bmask, want))
+    # the card's own time of one call (the mask packing apart), beside the
+    # event time the host's launches may set
+    split = device_split(lambda: [xor_fold(bdb, bmask) for _ in range(10)],
+                         {"pack": ["xor_fold_pack"], "fold": ["xor_fold"]})
+    at_bert4rec["device_ms"] = split["device_ms"] / 10
+    at_bert4rec["device_ms_by_kernel"] = {
+        k: v / 10 for k, v in split["ms"].items()}
     rows[-1]["at_bert4rec"] = {
-        k: at_bert4rec[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by")}
+        k: at_bert4rec[k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                    "device_ms_by_kernel", "plain_ms",
+                                    "bound_ms", "bound_by", "form", "forms")}
     del bdb, bmask, at_bert4rec
+    torch.cuda.empty_cache()
+    mask128 = random_mask(rng, 128, n, 0.5, dev)
+    rows.append(check_kernel(
+        "xor_fold_table", {"n": n, "W": w, "q": 128, "density": 0.5},
+        lambda: xor_fold(store.packed, mask128),
+        lambda: xor_fold_plain(store.packed, mask128),
+        fold_bound(store.packed, mask128),
+        "xor_fold.cu", "src/repro/kernels/xor_fold.py:79", plain_iters=1,
+        also=lambda want: fold_forms(store.packed, mask128, want)))
+    if rows[-1]["form"] != "table":
+        raise AssertionError("xor_fold at q 128 does not take the table form")
+    del mask128
     torch.cuda.empty_cache()
 
     # gather_xor at the lookup path's batch (q 8), serve_multi_ct's flat
@@ -1465,7 +1604,8 @@ def main() -> int:
                     torch.bfloat16, True, 1024, dev, flash_attention_fwd,
                     flash_attention_plain),
         check_flash("c_bert4rec", 32 * 2, 200, 32, torch.float32, False,
-                    None, dev, flash_attention_fwd, flash_attention_plain),
+                    None, dev, flash_attention_fwd, flash_attention_plain,
+                    device_runs=3),
         check_flash("d_lm_prefill_32k", 9, 32768, 64, torch.bfloat16, True,
                     None, dev, flash_attention_fwd, flash_attention_plain,
                     plain_rows=1, iters=3),
@@ -1490,7 +1630,8 @@ def main() -> int:
     emit({"phase": "kernels", "card": smi, "checked": [
         {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
                            "device_ms", "library_ms", "library_ms_int8",
-                           "max_abs_err", "uint8_form", "rows_layout",
+                           "max_abs_err", "form", "forms", "switch_sweep",
+                           "uint8_form", "rows_layout",
                            "at_bert4rec", "at_gate", "at_full_width",
                            "at_ct_scale", "at_q32", "at_q1", "shuffled",
                            "schedules_ms", "dense_fold_same_masks_ms",
@@ -1612,8 +1753,9 @@ def main() -> int:
     # the main path ends here: read the wrappers' counts before any launch
     # made only to measure
     by_path = {"lookup": read_counts()}
-    for name in ("xor_fold", "gather_xor", "indices_from_mask",
-                 "fused_gather_fold", "parity_matmul_packed"):
+    for name in ("xor_fold", "xor_fold_stream", "gather_xor",
+                 "indices_from_mask", "fused_gather_fold",
+                 "parity_matmul_packed"):
         if by_path["lookup"][name] <= 0:
             raise AssertionError(f"main path never launched {name}")
 

@@ -52,6 +52,7 @@ _L = ctypes.c_longlong
 # C entry point -> argument types (every one returns cudaGetLastError())
 _SIGNATURES = {
     "pir_xor_fold": (_P, _P, _P, _I, _I, _I, _P),
+    "pir_xor_fold_table": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pir_gather_xor": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),

@@ -67,34 +67,34 @@ def parity_crossover_batch(n: int, record_bits: int) -> int:
 
     on an NVIDIA H100 80GB HBM3 (power limit 700.00 W, ``chip_smoke.py``
     phase ``crossover``, the full 12 288 bit columns, the planes held
-    n-contiguous as the planner holds them) ``xor_fold`` against
-    ``parity_matmul_packed`` took, in ms at buckets 8 / 32 / 64 / 128 /
-    256 / 1024:
+    n-contiguous as the planner holds them) ``xor_fold`` (its table form
+    from 9 queries on) against ``parity_matmul_packed`` took, in ms at
+    buckets 8 / 32 / 64 / 128 / 256 / 512 / 1024 (one run):
 
-    - n cut to 65 536: fold 0.0475 / 0.148 / 0.208 / 0.446 / 0.834 /
-      3.11, parity 0.275 / 0.277 / 0.277 / 0.279 / 0.341 / 1.02: parity
-      first wins at 128;
-    - n = 10^6: fold 0.537 / 2.08 / 4.06 / 7.95 / 15.2 / 54.8, parity
-      3.95 / 3.99 / 4.03 / 4.02 / 5.11 / 22.1: parity first wins at 64,
-      by 0.8 %, and by 2x at 128 (earlier runs on the same card gave the
-      same two crossovers).
+    - n cut to 65 536: fold 0.0554 / 0.0780 / 0.1108 / 0.171 / 0.295 /
+      0.558 / 1.046, parity 0.287 / 0.287 / 0.289 / 0.298 / 0.356 / 0.563
+      / 1.054. From 512 up the two paths are level, within 3 % either
+      way: in eight runs of the phase parity first won at 512 four
+      times, at 1024 three times and at no bucket once. 512, the smallest
+      of those answers, is kept; it is a tie, not a crossover;
+    - n = 10^6 (no 512): fold 0.562 / 0.859 / 1.309 / 2.070 / 3.820 / — /
+      15.0, parity 4.08 / 4.17 / 4.23 / 4.19 / 4.73 / — / 23.9: the fold
+      wins at every bucket (eight runs).
 
-    The fold streams the packed store once per eight queries, so its time
-    grows with q; the parity kernel reads the planes (one byte per record
-    bit) once, whatever q up to about 256. Parity carries a fixed cost
-    (launch, the output's zeroing, the last wave's tail: the intercept in
-    n of the two measurements, 0.01-0.03 ms over the runs) that weighs at
-    small n, while the fold took about a fifth less time per record at
-    the smaller n; so the crossover falls as n grows. Between and beyond
-    the two measured sizes the function takes the nearer one's on a log
-    scale: 128 below n = 256 000 (about the geometric mean of 65 536 and
-    10^6), 64 from there. Both sides grow alike with the record width (the
-    fold reads 4 bytes a word, the parity kernel one a bit), so
-    ``record_bits`` does not move the crossover to first order; both
-    measurements are at 12 288 bits.
+    The fold's table form reads the packed store once per 256 queries and
+    pays shared-memory reads in proportion to q; the parity kernel reads
+    the planes (one byte per record bit, 8x the store) once, whatever q up
+    to about 256, and carries a fixed cost (launch, the output's zeroing,
+    the last wave's tail) that weighs at small n. So the fold gains on
+    parity as n grows. Between and beyond the two measured sizes the
+    function takes the nearer one's on a log scale: 512 below n = 256 000
+    (about the geometric mean of 65 536 and 10^6), never from there. Both
+    sides grow alike with the record width (the fold reads 4 bytes a
+    word, the parity kernel one a bit), so ``record_bits`` does not move
+    the crossover to first order; both measurements are at 12 288 bits.
     """
     del record_bits  # see above
-    return 128 if n < 256_000 else 64
+    return 512 if n < 256_000 else PARITY_NEVER_WINS
 
 
 def server_answer_auto(

@@ -118,16 +118,17 @@ def test_unforced_fold_parity_choice_follows_the_measured_crossover():
         assert plan.source == "model"
 
 
-@pytest.mark.parametrize("bucket,port_path", [(32, "fold"), (64, "parity"),
-                                              (128, "parity")])
+@pytest.mark.parametrize("bucket,port_path", [(32, "fold"), (64, "fold"),
+                                              (128, "fold")])
 def test_unforced_chor_at_ct_scale_departs_from_the_reference(bucket,
                                                               port_path):
-    """At n = 10^6 the port's measured crossover is 64, the reference's
-    modelled one 128 (ROADMAP Queue C): an unforced chor bucket of 64
-    plans parity in the port and fold in the reference; 32 and 128 plan
-    alike. The answers are the same bits either way."""
+    """At n = 10^6 the fold beats parity at every bucket on the card (the
+    port's measured crossover is "never"), the reference's modelled one is
+    128 (ROADMAP Queue C): an unforced chor bucket of 128 plans fold in the
+    port and parity in the reference; 32 and 64 plan alike. The answers
+    are the same bits either way."""
     rplan, tplan = _plans("chor", {}, bucket, 10**6, 4, None, None)
-    assert ops.parity_crossover_batch(10**6, 32) == 64
+    assert ops.parity_crossover_batch(10**6, 32) == ops.PARITY_NEVER_WINS
     assert tplan.path == port_path and tplan.source == "model"
     assert rplan.path == ("parity" if bucket >= 128 else "fold")
 

@@ -34,7 +34,15 @@ from repro_torch.kernels.parity_matmul import (
     parity_matmul_plain,
 )
 from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
-from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
+from repro_torch.kernels.xor_fold import (
+    STREAM,
+    TABLE,
+    TABLE_WIDTHS,
+    _form_for,
+    _launch,
+    xor_fold,
+    xor_fold_plain,
+)
 
 from _torch_parity import messy_index_rows
 
@@ -88,6 +96,86 @@ def test_xor_fold_kernel_mask_dtypes(cuda_device, dtype):
     store, mask = _case(128, 16, 7, cuda_device)
     _same(xor_fold(store.packed, mask.to(dtype)),
           xor_fold_plain(store.packed, mask))
+
+
+def _fold_operands(q, n, w, device, density=0.5, seed=0):
+    """Random words [n, w] and a [q, n] uint8 mask whose selecting bytes
+    take values 1-255 (any non-zero value selects)."""
+    rng = np.random.default_rng(seed)
+    db = torch.from_numpy(rng.integers(-2**31, 2**31, (n, w),
+                                       dtype=np.int64).astype(np.int32))
+    sel = rng.random((q, n)) < density
+    mask = np.where(sel, rng.integers(1, 256, (q, n)), 0).astype(np.uint8)
+    return db.to(device), torch.from_numpy(mask).to(device)
+
+
+def _fold_plain(db, mask, step=64):
+    """xor_fold_plain a few queries at a time (its [q, rows, W] selection
+    stays small at q 1000, W 385)."""
+    return torch.cat([xor_fold_plain(db, mask[i:i + step])
+                      for i in range(0, mask.shape[0], step)])
+
+
+def _every_form(db, mask, want):
+    """Each form forced (the table form at each of its warp widths), and
+    the wrapper's own choice, bit for bit against ``want``, each counted
+    once under its form."""
+    for form, width in [(STREAM, None)] + [(TABLE, w) for w in TABLE_WIDTHS]:
+        before = xor_fold.kernel_launches[form]
+        _same(_launch(db, mask, form, width), want)
+        assert xor_fold.kernel_launches[form] == before + 1
+    chosen = _form_for(mask.shape[0])
+    before = dict(xor_fold.kernel_launches)
+    _same(xor_fold(db, mask), want)
+    assert xor_fold.kernel_launches == {
+        f: c + (f == chosen) for f, c in before.items()}
+
+
+@pytest.mark.parametrize("q", [1, 8, 9, 33, 128, 257, 1000])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1000, 4099])
+@pytest.mark.parametrize("w", [1, 3, 16, 64, 385])
+def test_xor_fold_every_form_equals_plain(cuda_device, q, n, w):
+    """Ragged q (a partial warp, query group, 8-query tile), n (a partial
+    4-row table, 32-row stage) and W (odd: one word a lane; even: two)."""
+    db, mask = _fold_operands(q, n, w, cuda_device, seed=q * 7919 + n + w)
+    _every_form(db, mask, _fold_plain(db, mask))
+
+
+@pytest.mark.parametrize("density", [0.0, 0.2, 0.5, 1.0])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32, torch.bool])
+@pytest.mark.parametrize("q,n,w", [(8, 4099, 385), (128, 4099, 64),
+                                   (257, 1000, 3)])
+def test_xor_fold_forms_on_every_density_and_mask_type(cuda_device, density,
+                                                       dtype, q, n, w):
+    db, mask = _fold_operands(q, n, w, cuda_device, density=density)
+    want = _fold_plain(db, mask)
+    if density == 0.0:
+        assert int(want.abs().sum()) == 0
+    _every_form(db, mask.to(dtype), want)
+
+
+def test_xor_fold_atomic_combine_gives_the_same_bytes_every_run(cuda_device):
+    """Many row chunks per output word, combined by atomicXor in whatever
+    order the blocks finish: the same bytes on every run, in both forms."""
+    db, mask = _fold_operands(300, 100_000, 64, cuda_device)
+    want = _fold_plain(db, mask)
+    for form, width in [(STREAM, None)] + [(TABLE, w) for w in TABLE_WIDTHS]:
+        first = _launch(db, mask, form, width)
+        for _ in range(4):
+            _same(_launch(db, mask, form, width), first)
+        _same(first, want)
+
+
+def test_xor_fold_forms_refuse_what_they_do_not_take(cuda_device):
+    db, mask = _fold_operands(4, 64, 8, cuda_device)
+    with pytest.raises(ValueError, match="unknown xor_fold form"):
+        _launch(db, mask, "dense")
+    with pytest.raises(ValueError, match="queries a warp"):
+        _launch(db, mask, "table", 16)
+    with pytest.raises(ValueError, match="mask is on cpu"):
+        _launch(db, mask.cpu(), "table")
+    with pytest.raises(TypeError):
+        _launch(db.to(torch.int64), mask, "stream")
 
 
 @pytest.mark.parametrize("n,rb,q", SHAPES)

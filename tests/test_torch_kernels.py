@@ -44,7 +44,19 @@ from repro_torch.kernels.parity_matmul import (
     parity_matmul_packed_plain,
     parity_matmul_plain,
 )
-from repro_torch.kernels.xor_fold import xor_fold
+from repro_torch.kernels.xor_fold import (
+    FORMS,
+    MAX_QUERIES,
+    MAX_WORDS,
+    TABLE_MIN_QUERIES,
+    TABLE_WIDE_MIN_QUERIES,
+    TABLE_WIDTHS,
+    _check_limits,
+    _form_for,
+    _launch,
+    _table_width,
+    xor_fold,
+)
 
 from _torch_parity import messy_index_rows, seeded_mask, words_t2n
 
@@ -92,6 +104,68 @@ def test_xor_fold_mask_dtypes(tdtype, jdtype):
     got = xor_fold(ts.packed, torch.from_numpy(mask).to(tdtype))
     _eq(got, ref_xor_fold(rs.packed, jnp.asarray(mask).astype(jdtype),
                           interpret=True))
+
+
+@pytest.mark.parametrize("n,rb,q", [(1000, 16, 300), (4099, 12, 257),
+                                    (64, 1540, 1000)])
+def test_xor_fold_large_batches_equal_the_oracle(n, rb, q):
+    """Batches the table form takes on the card, against the jnp oracle."""
+    rs, ts, mask = _case(n, rb, q, seed=q)
+    _eq(xor_fold(ts.packed, torch.from_numpy(mask)),
+        ref_oracles.xor_fold_ref(rs.packed, jnp.asarray(mask)))
+
+
+@pytest.mark.parametrize("q,form,width", [
+    (1, "stream", 8), (8, "stream", 8), (9, "table", 8), (64, "table", 8),
+    (65, "table", 32), (128, "table", 32), (6400, "table", 32)])
+def test_xor_fold_form_follows_the_batch(q, form, width):
+    """The streaming form reads the store once per 8 queries; from the 9th
+    query on the table form answers, its warps 8 queries wide up to 64
+    queries and 32 from the 65th (the measured switches)."""
+    assert TABLE_MIN_QUERIES == 9 and FORMS == ("stream", "table")
+    assert TABLE_WIDE_MIN_QUERIES == 65 and TABLE_WIDTHS == (8, 32)
+    assert _form_for(q) == form
+    assert _table_width(q) == width
+
+
+def test_xor_fold_refuses_what_the_grids_cannot_hold():
+    for form in FORMS:
+        _check_limits(form, MAX_QUERIES[form], MAX_WORDS)
+        with pytest.raises(ValueError, match="queries"):
+            _check_limits(form, MAX_QUERIES[form] + 1, 1)
+        with pytest.raises(ValueError, match="words a record"):
+            _check_limits(form, 1, MAX_WORDS + 1)
+    assert MAX_QUERIES == {"stream": 65535 * 8, "table": 65535 * 256}
+    with pytest.raises(ValueError, match="unknown xor_fold form"):
+        _check_limits("dense", 1, 1)
+    # a forced warp width: 8 warps of it a block, 65535 blocks
+    for width in TABLE_WIDTHS:
+        _check_limits("table", 65535 * 8 * width, 1, width)
+        with pytest.raises(ValueError, match="table form takes at most"):
+            _check_limits("table", 65535 * 8 * width + 1, 1, width)
+    for form, width in [("table", 16), ("stream", 8)]:
+        with pytest.raises(ValueError, match="queries a warp"):
+            _check_limits(form, 1, 1, width)
+    # the CPU path checks as the card does, before any arithmetic
+    with pytest.raises(ValueError, match="table form takes at most"):
+        xor_fold(torch.zeros((1, 1), dtype=torch.int32),
+                 torch.zeros((MAX_QUERIES["table"] + 1, 1), dtype=torch.bool))
+    with pytest.raises(ValueError, match="words a record"):
+        xor_fold(torch.zeros((1, MAX_WORDS + 1), dtype=torch.int32),
+                 torch.ones((1, 1), dtype=torch.uint8))
+
+
+def test_xor_fold_forms_launch_only_for_tensors_on_the_card():
+    """No form runs its plain version: on the CPU the launch helper raises,
+    and the wrapper's plain path counts no launch of either form."""
+    _, ts, mask = _case(32, 8, 12)
+    tmask = torch.from_numpy(mask)
+    before = dict(xor_fold.kernel_launches)
+    for form in FORMS:
+        with pytest.raises(ValueError, match="on the card"):
+            _launch(ts.packed, tmask, form)
+    xor_fold(ts.packed, tmask)
+    assert xor_fold.kernel_launches == before
 
 
 @pytest.mark.parametrize("n,rb,q", SHAPES + NONPOW2_SHAPES)
