@@ -21,7 +21,9 @@ index compaction in front of the gather has one), holds each against its
 plain PyTorch version on the card (bit for bit for the six GF(2) kernels
 and the compaction, PIR is exact; within the reference's float tolerance
 for flash attention), times them with CUDA events (the gather at batches
-of 8, 32 and 1, on ascending ids and on shuffled ones), and checks that
+of 8, 32 and 1, on ascending ids and on shuffled ones; the fused gathers
+at batches of 8 and 32 in both grid orders and both staging paths, with
+the card's own time from torch.profiler), and checks that
 the answers are right (stored or pinned records; finite logits that
 agree with the CPU; private logits equal to the plain ones bit for bit)
 and that each path went through its kernels (launch counters, set to 0
@@ -474,6 +476,49 @@ def device_runs_ms(kernel_fn, library_fn, kernel_name, runs, calls=10):
     return {key: [us / 1e3 / calls for mine, us in turns if mine == want]
             for key, want in (("kernel_device_ms_runs", True),
                               ("library_device_ms_runs", False))}
+
+
+def fused_runs(forms, want, calls=10):
+    """Each form of a fused kernel (a grid order through the wrapper, or a
+    staging path forced through ``fused._launch``) held bit for bit against
+    ``want`` and timed: CUDA events (2 warm-ups, mean of 50) and the card's
+    own time of one call (torch.profiler over ``calls`` calls)."""
+    runs = {}
+    for name, fn in forms.items():
+        err = max_abs_err(fn(), want)
+        if err != 0:
+            raise AssertionError(f"fused form {name} differs from the plain "
+                                 f"answer (max abs err {err})")
+        split = device_split(lambda: [fn() for _ in range(calls)],
+                             {"fused": ["slab_kernel"]})
+        runs[name] = {"ms": time_ms(fn, iters=50),
+                      "device_ms": split["device_ms"] / calls,
+                      "max_abs_err": err}
+    return runs
+
+
+def fused_forms(kernel, launch, schedule, stagings, db, idx, offsets,
+                k_max, block_w, orders, budget):
+    """The forms ``fused_runs`` times: each grid order through the wrapper
+    (``kernel``), and each staging path each order can run, forced."""
+    forms = {}
+    for go in orders:
+        if offsets is None:
+            forms[go] = lambda go=go: kernel(db, idx, block_w=block_w,
+                                             grid_order=go)
+        else:
+            forms[go] = lambda go=go: kernel(db, idx, offsets, k_max=k_max,
+                                             block_w=block_w, grid_order=go)
+        for st in stagings:
+            try:
+                sched = schedule(db.shape[0], db.shape[1], idx.shape[0],
+                                 block_w, grid_order=go, k_max=k_max,
+                                 budget=budget, staging=st)
+            except ValueError:  # TMA where it cannot run
+                continue
+            forms[f"{go}/{st}"] = lambda s=sched: launch(db, idx, offsets,
+                                                         k_max, s)
+    return forms
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1232,9 +1277,10 @@ def main() -> int:
     from repro_torch.db import make_synthetic_store, packing
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fused import (
-        fused_block_w, fused_gather_fold, fused_gather_fold_plain,
-        fused_multi_gather_fold, fused_multi_gather_fold_plain,
-        fused_smem_budget, jagged_row_mask,
+        STAGINGS, _launch as fused_launch, fused_block_w, fused_gather_fold,
+        fused_gather_fold_plain, fused_multi_gather_fold,
+        fused_multi_gather_fold_plain, fused_schedule, fused_smem_budget,
+        jagged_row_mask,
     )
     from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
     from repro_torch.kernels.parity_matmul import (
@@ -1380,13 +1426,20 @@ def main() -> int:
     del mask
 
     # fused: the reduced config's shape (its serving path) and the largest
-    # n the shared-memory gate admits at the full record width
+    # n the shared-memory gate admits at the full record width, at the
+    # lookup batch (q 8) and at q 32; both grid orders through the wrapper
+    # and each staging path forced, each held bit for bit and timed by
+    # events and by the card's own time
     budget = fused_smem_budget(dev)
     red = pir_ct.reduced()
     small = make_synthetic_store(red.n_records, red.record_bytes, seed=0,
                                  device=dev)
     n_gate = budget // (8 * 4)
     fused_shapes = [(red.n_records, red.record_bytes // 4), (n_gate, w)]
+    fused_build = [
+        {k: e[k] for k in ("source", "entry", "registers", "smem_bytes",
+                           "spill_store_bytes", "spill_load_bytes")}
+        for e in report["kernels"] if e["source"].startswith("fused_")]
     fused_rows = []
     for fn_, fw in fused_shapes:
         fbw = fused_block_w(fn_, fw, device=dev)
@@ -1394,35 +1447,54 @@ def main() -> int:
             raise AssertionError(f"fused gate refuses n={fn_}, W={fw}")
         fdb = store.packed[:fn_, :fw].contiguous()
         fm = ops.sparse_index_budget(fn_, cfg.theta)
-        fidx = indices_from_mask(
-            random_mask(rng, q, fn_, cfg.theta, dev), fm)
-        fdistinct = int(torch.unique(fidx[fidx >= 0]).numel())
-        for go in ("qw", "wq"):
-            if max_abs_err(
-                fused_gather_fold(fdb, fidx, block_w=fbw, grid_order=go),
-                gather_xor(fdb, fidx),
-            ) != 0:
-                raise AssertionError(f"fused {go} differs from gather_xor")
-        fused_rows.append(check_kernel(
-            "fused_gather_fold",
-            {"n": fn_, "W": fw, "q": q, "m": fm,
-             "distinct_rows": fdistinct, "block_w": fbw,
-             "grid_order": "qw", "smem_budget": budget},
-            lambda: fused_gather_fold(fdb, fidx, block_w=fbw),
-            lambda: fused_gather_fold_plain(fdb, fidx),
-            # the function is gather_xor's: only the distinct live rows
-            # need to move, whatever the kernel stages
-            ((fdistinct * fw * 4 + q * fm * 4 + q * fw * 4)
-             / HBM_BYTES_PER_S * 1e3, "bytes"),
-            "fused_gather_fold.cu", "src/repro/kernels/fused.py:190",
-            iters=50, plain_iters=5,
-        ))
+        by_q = []
+        for fq in (q, 32):
+            fidx = indices_from_mask(
+                random_mask(rng, fq, fn_, cfg.theta, dev), fm)
+            fdistinct = int(torch.unique(fidx[fidx >= 0]).numel())
+            want = gather_xor(fdb, fidx)
+            if max_abs_err(fused_gather_fold_plain(fdb, fidx), want) != 0:
+                raise AssertionError("fused plain version != gather_xor")
+            by_q.append(check_kernel(
+                "fused_gather_fold",
+                {"n": fn_, "W": fw, "q": fq, "m": fm,
+                 "distinct_rows": fdistinct, "block_w": fbw,
+                 "grid_order": "qw", "smem_budget": budget,
+                 "schedule": dict(fused_schedule(
+                     fn_, fw, fq, fbw, budget=budget))},
+                lambda: fused_gather_fold(fdb, fidx, block_w=fbw),
+                lambda: fused_gather_fold_plain(fdb, fidx),
+                # the function is gather_xor's: only the distinct live rows
+                # need to move, whatever the kernel stages
+                ((fdistinct * fw * 4 + fq * fm * 4 + fq * fw * 4)
+                 / HBM_BYTES_PER_S * 1e3, "bytes"),
+                "fused_gather_fold.cu", "src/repro/kernels/fused.py:190",
+                iters=50, plain_iters=5,
+                also=lambda want_: {"forms": fused_runs(fused_forms(
+                    fused_gather_fold, fused_launch, fused_schedule,
+                    STAGINGS, fdb, fidx, None, 1, fbw, ("qw", "wq"),
+                    budget), want_)},
+            ))
+            by_q[-1]["device_ms"] = by_q[-1]["forms"]["qw"]["device_ms"]
+        by_q[0]["at_q32"] = {k: by_q[1][k] for k in (
+            "shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "forms")}
+        fused_rows.append(by_q[0])
     # the row of the kernel is the main path's shape; the widest slab the
-    # gate admits rides along under "at_gate"
+    # gate admits rides along under "at_gate", with what the build made of
+    # the fused kernels and how many clusters of 8 CTAs the card holds
     fused_rows[0]["at_gate"] = {
         k: fused_rows[1][k]
-        for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                  "bound_by")}
+        for k in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                  "bound_ms", "bound_by", "forms", "at_q32")}
+    fused_rows[0]["build"] = fused_build
+    lib = _build.library()
+    fused_rows[0]["active_clusters"] = {
+        f"8 CTAs of {b} B": lib.pir_fused_active_clusters(8, b)
+        for b in (fused_rows[0]["shape"]["schedule"]["smem_bytes"], budget)}
+    if min(fused_rows[0]["active_clusters"].values()) <= 0:
+        raise AssertionError("the card holds no cluster of 8 fused CTAs: "
+                             f"{fused_rows[0]['active_clusters']}")
     rows.append(fused_rows[0])
 
     # parity: the shape the main path gives it (the reduced store, one
@@ -1575,20 +1647,28 @@ def main() -> int:
             {"n": fn_, "W": fw, "requests": len(path_counts),
              "counts": "all live", "k_max": k_max_m, "m": fm,
              "distinct_rows": distinct, "block_w": fbw, "grid_order": "rw",
-             "smem_budget": budget},
+             "smem_budget": budget, "schedule": dict(fused_schedule(
+                 fn_, fw, len(path_counts) * k_max_m, fbw, grid_order="rw",
+                 k_max=k_max_m, budget=budget))},
             lambda: fused_multi_gather_fold(fdb, idx, off, k_max=k_max_m,
                                             block_w=fbw),
             lambda: fused_multi_gather_fold_plain(fdb, idx, off, k_max_m),
             bound, "fused_multi_gather_fold.cu",
             "src/repro/kernels/fused.py:302", iters=50, plain_iters=5,
+            also=lambda want_: {"forms": fused_runs(fused_forms(
+                fused_multi_gather_fold, fused_launch, fused_schedule,
+                STAGINGS, fdb, idx, off, k_max_m, fbw, ("rw", "wr"),
+                budget), want_)},
         ))
+        multi_rows[-1]["device_ms"] = multi_rows[-1]["forms"]["rw"][
+            "device_ms"]
         multi_rows[-1]["jagged"] = {"counts": list(jagged_counts),
                                     "dead_rows": "garbage",
                                     "max_abs_err": jagged_err}
     multi_rows[0]["at_gate"] = {
         k: multi_rows[1][k]
-        for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                  "bound_by")}
+        for k in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                  "bound_ms", "bound_by", "forms", "jagged")}
     rows.append(multi_rows[0])
 
     # flash_attention_fwd at the operands of its paths: (a) the LM prefill
@@ -1634,6 +1714,7 @@ def main() -> int:
                            "uint8_form", "rows_layout",
                            "at_bert4rec", "at_gate", "at_full_width",
                            "at_ct_scale", "at_q32", "at_q1", "shuffled",
+                           "active_clusters",
                            "schedules_ms", "dense_fold_same_masks_ms",
                            "edge_cases", "build", "sass",
                            "duplicates_last_write", "jagged", "operand_sets")

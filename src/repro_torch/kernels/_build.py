@@ -49,7 +49,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry point -> argument types (every one returns cudaGetLastError())
+# C entry point -> argument types (every one returns a cudaError_t, but
+# pir_fused_active_clusters, a count)
 _SIGNATURES = {
     "pir_xor_fold": (_P, _P, _P, _I, _I, _I, _P),
     "pir_xor_fold_table": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -57,10 +58,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "pir_indices_from_mask": (_P, _P, _P, _I, _I, _I, _P),
-    "pir_fused_gather_fold": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "pir_fused_multi_gather_fold": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    "pir_fused_gather_fold": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    "pir_fused_multi_gather_fold": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "pir_fused_active_clusters": (_I, _I),
     "pir_parity_matmul": (_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P),
     "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pir_flash_attention_fwd": (

@@ -39,6 +39,7 @@ decision (``ExecutionPlan.source == "forced"``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -462,6 +463,15 @@ class KernelPlanner:
         }
 
 
+@functools.lru_cache(maxsize=64)
+def _all_live_offsets(requests: int, k_max: int,
+                      device: torch.device) -> torch.Tensor:
+    """[requests + 1] offsets with every row live (``r·k_max``), made once
+    per (requests, k_max, device). Read-only: the kernel never writes it."""
+    return torch.arange(requests + 1, dtype=torch.int32,
+                        device=device) * k_max
+
+
 def _path_answer_fn(
     path: str, impl: str, m_budget: Optional[int], blocks: Dict[str, Any],
 ) -> Kernel:
@@ -508,10 +518,7 @@ def _path_answer_fn(
             # columns are real dummy queries whose answers the client
             # drops), so the all-live offsets make this bit-identical to
             # the flat forms on the same payload
-            off = torch.arange(
-                idx.shape[0] // k_max + 1, dtype=torch.int32,
-                device=idx.device,
-            ) * k_max
+            off = _all_live_offsets(idx.shape[0] // k_max, k_max, idx.device)
             return fused_multi_gather_fold(
                 db, idx, off, k_max=k_max, block_w=bw, grid_order=go,
             )

@@ -8,10 +8,3 @@
 static inline int pir_ceil_div(long long a, long long b) {
   return (int)((a + b - 1) / b);
 }
-
-// XOR-reduce a value over the lanes of a warp that share (lane % width).
-__device__ __forceinline__ uint32_t pir_warp_xor_rows(uint32_t v, int width) {
-  for (int off = 16; off >= width; off >>= 1)
-    v ^= __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}

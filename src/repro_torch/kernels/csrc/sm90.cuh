@@ -1,11 +1,12 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// mbarriers, TMA loads and stores, wgmma descriptors and fences, named
-// barriers, and cuTensorMapEncodeTiled found at run time (no link against
-// libcuda). Each includer gets its own copy (anonymous namespace).
+// Hopper (sm_90a) building blocks shared by the tensor-core and slab
+// kernels: mbarriers, TMA loads (multicast too) and stores, the cluster
+// barrier, wgmma descriptors and fences, named barriers, and
+// cuTensorMapEncodeTiled found at run time through cudaGetDriverEntryPoint
+// (no link against libcuda). Each includer gets its own copy (anonymous
+// namespace).
 #pragma once
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes by dlsym
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes at run time
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
@@ -78,6 +79,36 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       : "memory");
 }
 
+// The same 2-D box delivered to the same shared-memory offset of every CTA
+// of the cluster named in cta_mask, each completing on its own mbarrier at
+// offset bar: one read of the box from L2 for the whole cluster.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1,
+                                                      uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "h"(cta_mask)
+      : "memory");
+}
+
+// Makes an mbarrier's initialisation visible to the other CTAs of the
+// cluster (before they may signal it).
+__device__ __forceinline__ void fence_mbarrier_init_cluster() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Every thread of every CTA of the cluster: what each wrote to its shared
+// memory before is visible to the others after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // Orders this thread's generic-proxy writes to shared memory before later
 // reads of it by the async proxy (wgmma, TMA store).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -130,15 +161,17 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver library the process has loaded
-// (the CUDA runtime has): no link against libcuda.
+// cuTensorMapEncodeTiled through the runtime's driver entry point: no link
+// against libcuda.
 inline EncodeTiled encoder() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+    void* found = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &found,
+                                cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(found);
   }
   return fn;
 }

@@ -16,10 +16,14 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
 )
 from repro_torch.kernels.fused import (
+    STAGINGS,
+    _launch as fused_launch,
     fused_gather_fold,
     fused_gather_fold_plain,
     fused_multi_gather_fold,
     fused_multi_gather_fold_plain,
+    fused_schedule,
+    fused_smem_budget,
 )
 from repro_torch.kernels.gather_xor import (
     gather_xor,
@@ -636,6 +640,171 @@ def test_fused_multi_kernel_refuses_oversized_slab(cuda_device):
                                   garbage=False)
     with pytest.raises(ValueError, match="shared"):
         fused_multi_gather_fold(store.packed, idx, off, k_max=1, block_w=4)
+
+
+# ------------------------------------ the fused kernels' cluster launches
+FUSED_CLUSTER_SHAPES = [
+    # (n, W, block_w): the reduced config's slab (either staging path), W 3
+    # (12-byte rows: copy only), a ragged last word tile (W 40 at 16, TMA's
+    # zero fill past W), the gate's edge (the slab fills the opt-in limit:
+    # copy, and no room for scratch)
+    (2048, 16, 16), (300, 3, 128), (500, 40, 16), (7264, 384, 8),
+]
+
+
+def _fused_words(n, w, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(-(2**31), 2**31, size=(n, w), dtype=np.int64)
+        .astype(np.int32)).to(device)
+
+
+def _fused_ids(n, rows, m, device, seed):
+    """Random ids with padding, ids below 0 and at or past n (skipped), a
+    duplicate in every row (cancels) and, from 2 rows, an all-padding
+    row. Ids past n lie outside the plain version's contract: compare
+    with :func:`_in_store`."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, size=(rows, m)).astype(np.int32)
+    idx[:, ::7] = -1
+    idx[:, 3::11] = n
+    idx[:, 5::13] = -5
+    idx[:, 9::17] = n + 1000
+    idx[:, 1] = idx[:, 2]
+    if rows > 1:
+        idx[rows // 2] = -1
+    return torch.from_numpy(idx).to(device)
+
+
+def _in_store(idx, n):
+    return torch.where(idx < n, idx, -1)
+
+
+def _each_staging(cuda_device, n, w, rows, block_w, grid_order, k_max=1):
+    """The schedule the wrapper takes, then each staging path forced where
+    it can run."""
+    budget = fused_smem_budget(cuda_device)
+    out = [fused_schedule(n, w, rows, block_w, grid_order=grid_order,
+                          k_max=k_max, budget=budget)]
+    for staging in STAGINGS:
+        try:
+            out.append(fused_schedule(n, w, rows, block_w,
+                                      grid_order=grid_order, k_max=k_max,
+                                      budget=budget, staging=staging))
+        except ValueError:  # TMA where it cannot run
+            assert staging == "tma"
+    return out
+
+
+@pytest.mark.parametrize("n,w,block_w", FUSED_CLUSTER_SHAPES)
+@pytest.mark.parametrize("q", [1, 3, 8, 9, 17, 33])
+@pytest.mark.parametrize("grid_order", ["qw", "wq"])
+def test_fused_cluster_kernel_equals_plain(cuda_device, n, w, block_w, q,
+                                           grid_order):
+    db = _fused_words(n, w, cuda_device, seed=n + q)
+    idx = _fused_ids(n, q, 301, cuda_device, seed=q)
+    want = fused_gather_fold_plain(db, _in_store(idx, n))
+    launches = fused_gather_fold.launches
+    _same(fused_gather_fold(db, idx, block_w=block_w,
+                            grid_order=grid_order), want)
+    assert fused_gather_fold.launches == launches + 1
+    for sched in _each_staging(cuda_device, n, w, q, block_w, grid_order):
+        launches = fused_gather_fold.launches
+        _same(fused_launch(db, idx, None, 1, sched), want)
+        assert fused_gather_fold.launches == launches + 1
+
+
+FUSED_MULTI_COUNTS = [
+    # (counts per request, k_max): zero counts on the CTAs' boundaries (1
+    # and 2 requests a CTA), the first and the last request dead, a count
+    # past k_max (every row live), every request dead
+    ((0, 4, 4, 0, 4, 0, 0, 4, 0, 6), 4),
+    ((0, 2, 0, 1, 0, 0, 2, 2, 0, 1, 0, 2, 0, 0, 1, 0, 2), 2),
+    ((0, 0, 0), 8),
+]
+
+
+@pytest.mark.parametrize("counts,k_max", FUSED_MULTI_COUNTS)
+@pytest.mark.parametrize("n,w,block_w", FUSED_CLUSTER_SHAPES)
+@pytest.mark.parametrize("grid_order", ["rw", "wr"])
+def test_fused_multi_cluster_kernel_equals_plain(cuda_device, counts, k_max,
+                                                 n, w, block_w, grid_order):
+    """Dead rows hold live-looking garbage and answer zero."""
+    db = _fused_words(n, w, cuda_device, seed=n)
+    rows = len(counts) * k_max
+    idx = _fused_ids(n, rows, 173, cuda_device, seed=rows)
+    off = torch.from_numpy(np.cumsum((0,) + counts).astype(np.int32)).to(
+        cuda_device)
+    want = fused_multi_gather_fold_plain(db, _in_store(idx, n), off, k_max)
+    launches = fused_multi_gather_fold.launches
+    _same(fused_multi_gather_fold(db, idx, off, k_max=k_max, block_w=block_w,
+                                  grid_order=grid_order), want)
+    assert fused_multi_gather_fold.launches == launches + 1
+    for sched in _each_staging(cuda_device, n, w, rows, block_w, grid_order,
+                               k_max):
+        launches = fused_multi_gather_fold.launches
+        _same(fused_launch(db, idx, off, k_max, sched), want)
+        assert fused_multi_gather_fold.launches == launches + 1
+
+
+def test_fused_kernels_write_every_output_word(cuda_device):
+    """The output comes from torch.empty: after a launch into memory full
+    of ones every word is the plain answer, on both paths and orders."""
+    db = _fused_words(2048, 16, cuda_device, seed=1)
+    idx = _fused_ids(2048, 32, 301, cuda_device, seed=2)
+    off = torch.arange(9, dtype=torch.int32, device=cuda_device) * 4
+    off[3] = off[2]  # request 2 dead
+    live = _in_store(idx, 2048)
+    flat, multi = (fused_gather_fold_plain(db, live),
+                   fused_multi_gather_fold_plain(db, live, off, 4))
+    for go, mgo in (("qw", "rw"), ("wq", "wr")):
+        # the caching allocator hands a freed block of the output's size to
+        # the next torch.empty of that size
+        torch.full_like(flat, -1)
+        _same(fused_gather_fold(db, idx, grid_order=go), flat)
+        torch.full_like(multi, -1)
+        _same(fused_multi_gather_fold(db, idx, off, k_max=4, grid_order=mgo),
+              multi)
+
+
+def test_eight_full_slab_ctas_make_one_cluster(cuda_device):
+    """A cluster of 8 CTAs that each hold a whole 227 KB slab fits the
+    card: every CTA of a TMA cluster holds the whole slab."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    assert lib.pir_fused_active_clusters(8, fused_smem_budget(cuda_device)) > 0
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_fused_refused_cluster_launch_raises(cuda_device, monkeypatch,
+                                             multi):
+    """A launch the card or the launcher refuses raises, and is never
+    answered by the plain version."""
+    from repro_torch.kernels import _build
+
+    db = _fused_words(256, 16, cuda_device, seed=0)
+    idx = _fused_ids(256, 8, 64, cuda_device, seed=0)
+    off = torch.arange(3, dtype=torch.int32, device=cuda_device) * 4
+    sched = fused_schedule(256, 16, 8, 16)
+    # a cluster past the portable 8 CTAs: the launcher refuses it
+    bad = {**sched, "cluster": 9, "grid": (9,) + sched["grid"][1:]}
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        fused_launch(db, idx, off if multi else None, 4 if multi else 1, bad)
+
+    class Refused:  # what a launch the card refuses returns
+        @staticmethod
+        def pir_fused_gather_fold(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+        pir_fused_multi_gather_fold = pir_fused_gather_fold
+
+    monkeypatch.setattr(_build, "library", lambda: Refused)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        if multi:
+            fused_multi_gather_fold(db, idx, off, k_max=4)
+        else:
+            fused_gather_fold(db, idx)
 
 
 def test_live_store_and_multi_pipeline_on_the_card(cuda_device):

@@ -25,9 +25,14 @@ from repro.kernels import (
 from repro_torch.db import make_synthetic_store, packing
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.fused import (
+    CLUSTER_MAX,
     FUSED_SMEM_FALLBACK_BYTES,
+    ROWS_PER_CTA_MAX,
+    TMA_MIN_WORDS,
+    WARPS,
     fused_block_w,
     fused_gather_fold,
+    fused_schedule,
     fused_smem_budget,
 )
 from repro_torch.kernels.gather_xor import (
@@ -508,6 +513,98 @@ def test_fused_gate_on_the_hopper_budget():
     assert fused_block_w(10**6, 384) == 0     # CT scale: fall back to pair
     assert fused_block_w(7000, 12) == 8       # rounds W down to a pow2
     assert fused_block_w(8000, 12) == 0       # 8-word slab does not fit
+
+
+FUSED_SCHEDULE_CASES = [
+    # (n, W, index rows, block_w, k_max, aligned store): the reduced
+    # config's lookup batch and multi bucket, the gate's edge (the slab
+    # fills the budget to the byte), a batch of 1 and 32 there, a 16-word
+    # tile of the CT record, W 3, an unaligned store, the most queries, a
+    # tile wider than a pass, k_max past a CTA's warps
+    (2048, 16, 8, 16, 1, True),
+    (2048, 16, 32, 16, 4, True),
+    (7264, 384, 8, 8, 1, True),
+    (7264, 384, 1, 8, 1, True),
+    (7264, 384, 32, 8, 4, True),
+    (3584, 384, 33, 16, 1, True),
+    (300, 3, 5, 128, 1, True),
+    (500, 40, 17, 16, 1, False),
+    (256, 16, 65535, 16, 1, True),
+    (100, 1000, 9, 512, 1, True),
+    (37, 33, 3, 128, 1, True),
+    (2048, 16, 36, 16, 9, True),
+]
+
+
+@pytest.mark.parametrize("n,w,rows,block_w,k_max,aligned",
+                         FUSED_SCHEDULE_CASES)
+@pytest.mark.parametrize("spread", [True, False])
+def test_fused_schedule_fits_the_card(n, w, rows, block_w, k_max, aligned,
+                                      spread):
+    """Clusters of at most 8 CTAs span the grid's x axis; the CTAs cover
+    the rows in whole requests; the warps a row take one round and one
+    pass; TMA only where it can run and a cluster shares it; the shared
+    memory fits the Hopper budget and is what the kernel takes."""
+    order = ("qw" if spread else "wq") if k_max == 1 else (
+        "rw" if spread else "wr")
+    s = fused_schedule(n, w, rows, block_w, grid_order=order, k_max=k_max,
+                       aligned=aligned)
+    bw = min(block_w, w)
+    c = s["cluster"]
+    assert 1 <= c <= CLUSTER_MAX and s["block_w"] == bw
+    assert s["grid"] == (c, -(-w // bw), s["groups"])
+    assert s["grid"][0] % c == 0 and max(s["grid"]) <= 65535
+    rpc = s["rows_per_cta"]
+    assert rpc % k_max == 0 and rpc <= max(ROWS_PER_CTA_MAX, k_max)
+    assert c * s["groups"] * rpc >= rows
+    wpq = s["warps_per_row"]
+    assert 1 <= wpq <= WARPS and wpq & (wpq - 1) == 0
+    if wpq > 1:  # one round of the CTA's warps, one pass of the tile
+        assert rpc <= WARPS // wpq and bw <= 512
+    if s["staging"] == "tma":
+        assert aligned and w % 4 == 0 and bw % 4 == 0 and c > 1
+        assert TMA_MIN_WORDS <= bw <= 256
+    else:
+        assert s["staging"] == "copy" and c == 1
+    # the warps' scratch lies over the slab: at least WARPS rows of it
+    slab_rows = max(n, WARPS) if wpq > 1 else n
+    assert s["smem_bytes"] == slab_rows * bw * 4 + (
+        8 if s["staging"] == "tma" else 0)
+    assert s["smem_bytes"] <= FUSED_SMEM_FALLBACK_BYTES
+
+
+def test_fused_schedule_on_the_serving_shapes():
+    """The reduced config's batch of 8 shares one TMA multicast over a
+    cluster of 8 CTAs, a query each ("qw"), or takes one CTA ("wq"); a
+    slab that fills the budget takes the barrier-free copy, and TMA forced
+    there, on W 3 or on an unaligned store raises."""
+    qw = fused_schedule(2048, 16, 8, 16, grid_order="qw")
+    assert (qw["staging"], qw["cluster"], qw["rows_per_cta"],
+            qw["warps_per_row"]) == ("tma", 8, 1, 16)
+    wq = fused_schedule(2048, 16, 8, 16, grid_order="wq")
+    assert (wq["staging"], wq["grid"], wq["rows_per_cta"]) == (
+        "copy", (1, 1, 1), 8)
+    rw = fused_schedule(2048, 16, 32, 16, grid_order="rw", k_max=4)
+    assert (rw["staging"], rw["cluster"], rw["rows_per_cta"]) == (
+        "tma", 8, 4)
+    edge = fused_schedule(7264, 384, 8, 8)
+    assert (edge["staging"], edge["cluster"], edge["smem_bytes"],
+            edge["warps_per_row"]) == ("copy", 1, 232_448, 2)
+    assert fused_schedule(7264, 384, 32, 8)["groups"] == 2
+    for args, kw in (((7264, 384, 8, 8), {}), ((300, 3, 5, 128), {}),
+                     ((2048, 16, 8, 16), {"aligned": False})):
+        with pytest.raises(ValueError):
+            fused_schedule(*args, staging="tma", **kw)
+    forced = fused_schedule(2048, 16, 8, 16, staging="copy")
+    assert (forced["staging"], forced["cluster"]) == ("copy", 1)
+
+
+def test_fused_schedule_refuses_what_the_kernel_does_not_take():
+    for kw in ({"grid_order": "qwm"}, {"k_max": 3}, {"staging": "dsmem"}):
+        with pytest.raises(ValueError):
+            fused_schedule(2048, 16, 8, 16, **kw)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_schedule(7265, 384, 8, 8)
 
 
 @pytest.mark.parametrize("n,theta", [(10_000, 0.25), (16, 0.5), (10**6, 0.25),

@@ -277,6 +277,19 @@ def test_multi_plan_decisions_equal_the_reference(n, rb, bucket, k_max, budget):
                         k_max=k_max) is not tplan
 
 
+def test_all_live_offsets_are_made_once_per_shape_and_device():
+    """The multi executor's offsets: every row live, one tensor per
+    (requests, k_max, device), handed out again rather than rebuilt."""
+    from repro_torch.kernels.backend import _all_live_offsets
+
+    off = _all_live_offsets(8, 4, torch.device("cpu"))
+    assert off.dtype == torch.int32 and off.tolist() == list(range(0, 36, 4))
+    assert _all_live_offsets(8, 4, torch.device("cpu")) is off
+    assert _all_live_offsets(8, 2, torch.device("cpu")).tolist() == list(
+        range(0, 18, 2))
+    assert jagged_row_mask(off, 4, 32).all()
+
+
 def test_multi_gate_falls_back_to_pair():
     store = make_synthetic_store(256, 16, seed=2, device="cpu")
     sch = make_scheme("sparse", d=D, d_a=D_A, theta=0.25).staged
