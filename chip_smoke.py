@@ -16,8 +16,9 @@ greedy decode of 4 x 4096 tokens, one 32 768-token prefill, the f32 model
 on the card against the CPU) and BERT4Rec scoring 32 users whose item
 histories are fetched by Sparse-PIR. Builds the CUDA kernels from the
 nine sources in this tree (flash attention has two: bf16 at head dims 64
-and 128 on the tensor cores, everything else in f32; the Sparse-PIR
-index compaction in front of the gather has one), holds each against its
+and 128 on wgmma, everything else on the TF32 tensor cores through
+mma.sync in three passes; the Sparse-PIR index compaction in front of the
+gather has one), holds each against its
 plain PyTorch version on the card (bit for bit for the six GF(2) kernels
 and the compaction, PIR is exact; within the reference's float tolerance
 for flash attention), times them with CUDA events (the gather at batches
@@ -55,6 +56,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12  # tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # tensor cores
 F32_FLOPS_PER_S = 67e12    # outside the tensor cores
 
 # flash attention against its plain version: in bf16 both sides accumulate
@@ -530,14 +532,15 @@ def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(bh, sq, sk, d, causal, window, dtype, peak=None):
-    """The larger of 4·d flops per unmasked pair over ``peak`` (by default
-    the type's: bf16 tensor cores, float32 outside them) and the Q/K/V/O
-    bytes over the memory rate."""
+def flash_bound(bh, sq, sk, d, causal, window, dtype, peak=None, passes=1):
+    """The larger of ``passes`` × 4·d flops per unmasked pair over ``peak``
+    (by default the type's: bf16 tensor cores, float32 outside them) and
+    the Q/K/V/O bytes over the memory rate."""
     elem = 2 if dtype == torch.bfloat16 else 4
     if peak is None:
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    ops_s = 4.0 * bh * attention_pairs(sq, sk, causal, window) * d / peak
+    ops_s = (passes * 4.0 * bh * attention_pairs(sq, sk, causal, window) * d
+             / peak)
     bytes_s = bh * (2 * sq + 2 * sk) * d * elem / HBM_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s > bytes_s else "bytes")
@@ -1039,6 +1042,12 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
     # operands' type: below bound_ms where the operands are f32
     bf16_peak_ms, bf16_peak_by = flash_bound(bh, sq, sq, d, causal, window,
                                              dtype, peak=BF16_FLOPS_PER_S)
+    extra = {}
+    if dtype == torch.float32:
+        # what flash_attention.cu runs: three TF32 passes (3xTF32) a product
+        extra["bound_at_3xtf32_ms"], extra["bound_at_3xtf32_by"] = (
+            flash_bound(bh, sq, sq, d, causal, window, dtype,
+                        peak=TF32_FLOPS_PER_S, passes=3))
     return {
         "label": label,
         "shape": {"bh": bh, "sq": sq, "sk": sq, "d": d,
@@ -1051,7 +1060,7 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
         "plain_ms": time_ms(plain, warmup=1, iters=2),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_at_bf16_peak_ms": bf16_peak_ms,
-        "bound_at_bf16_peak_by": bf16_peak_by,
+        "bound_at_bf16_peak_by": bf16_peak_by, **extra,
         "library_ms": time_ms(library, iters=iters),
         "library": ("scaled_dot_product_attention"
                     + (" (band mask)" if band is not None else "")),
@@ -1171,6 +1180,10 @@ def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
     got, _ = T.prefill(card, cfg32, tokens, 256)
     torch.cuda.synchronize()
     counts["serve_lm_f32_check"] = read_counts()
+    if counts["serve_lm_f32_check"]["flash_fwd_kernel"] != cfg.n_layers:
+        raise AssertionError("serve_lm_smollm f32: the prefill's flash "
+                             "launches did not all run flash_fwd_kernel: "
+                             f"{counts['serve_lm_f32_check']}")
     want, _ = T.prefill(host, cfg32, tokens, 256)
     got = got.cpu()
     err = float((got - want).abs().max())
@@ -1565,6 +1578,18 @@ def main() -> int:
         "scatter_rows.cu", "src/repro/kernels/scatter.py:100",
         library_fn=lambda: store.packed.index_copy(0, up_rows_long, up_vals),
     ))
+    # the kernel and index_copy in turns in this one process (library,
+    # kernel, kernel, library; CUDA events, mean of 10 after 2 warm-ups)
+    rows[-1]["alternating_ms"] = [
+        [name, time_ms(fn, iters=10)] for name, fn in (
+            ("index_copy",
+             lambda: store.packed.index_copy(0, up_rows_long, up_vals)),
+            ("scatter_rows",
+             lambda: scatter_rows(store.packed, up_rows, up_vals)),
+            ("scatter_rows",
+             lambda: scatter_rows(store.packed, up_rows, up_vals)),
+            ("index_copy",
+             lambda: store.packed.index_copy(0, up_rows_long, up_vals)))]
     # duplicate rows with different values: the last write wins, and the
     # input is never written
     dup = torch.tensor([7, 11, 7, 7, 11, n - 1, 7], dtype=torch.int32,
@@ -1676,7 +1701,9 @@ def main() -> int:
     # the same with gemma-2's 1024-token window, (c) BERT4Rec (32 users x 2
     # heads, 200 items, head dim 32, f32, bidirectional), (d) the
     # prefill_32k length (batch cut to 1; the plain version is held on 1 of
-    # the 9 rows: the full score matrix does not fit)
+    # the 9 rows: the full score matrix does not fit), (e) the LM's f32
+    # card-vs-CPU check (9 heads, 256 tokens, head dim 64, f32, causal: 30
+    # launches a prefill), (f) (a)'s operands in f32
     flash_sets = [
         check_flash("a_lm_prefill", 4 * 9, 4096, 64, torch.bfloat16, True,
                     None, dev, flash_attention_fwd, flash_attention_plain),
@@ -1689,12 +1716,20 @@ def main() -> int:
         check_flash("d_lm_prefill_32k", 9, 32768, 64, torch.bfloat16, True,
                     None, dev, flash_attention_fwd, flash_attention_plain,
                     plain_rows=1, iters=3),
+        check_flash("e_lm_f32_check", 9, 256, 64, torch.float32, True, None,
+                    dev, flash_attention_fwd, flash_attention_plain,
+                    device_runs=3),
+        check_flash("f_lm_prefill_f32", 4 * 9, 4096, 64, torch.float32, True,
+                    None, dev, flash_attention_fwd, flash_attention_plain,
+                    device_runs=3),
     ]
     for fs in flash_sets:
-        want = "flash_fwd_kernel" if fs["label"] == "c_bert4rec" else (
-            "flash_wgmma_kernel")
-        if fs["kernel"] != want:
-            raise AssertionError(f"flash {fs['label']} ran {fs['kernel']}, "
+        want = ("flash_fwd_kernel" if fs["shape"]["dtype"] == "float32"
+                else "flash_wgmma_kernel")
+        checked = [fs["kernel"]] + ([fs["same_operands_in_f32"]["kernel"]]
+                                    if fs["same_operands_in_f32"] else [])
+        if checked != [want] + ["flash_fwd_kernel"] * (len(checked) - 1):
+            raise AssertionError(f"flash {fs['label']} ran {checked}, "
                                  f"expected {want}")
     flash_row = {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -1706,6 +1741,27 @@ def main() -> int:
         "operand_sets": flash_sets,
     }
     rows.append(flash_row)
+    # the f32 kernel (flash_attention.cu) on its own row, at (c), with its
+    # own counter; it runs on the tensor cores (mma.sync in TF32)
+    f32_set = next(fs for fs in flash_sets if fs["label"] == "c_bert4rec")
+    runs = f32_set["kernel_device_ms_runs"]
+    f32_row = {
+        "name": "flash_attention_fwd_f32", "counter": "flash_fwd_kernel",
+        "route": "cuda", "source": f32_set["source"],
+        "replaces": "src/repro/kernels/flash_attention.py:111", "launches": 0,
+        **{k: f32_set[k] for k in (
+            "shape", "kernel", "max_abs_err", "tolerance", "ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_at_3xtf32_ms", "library_ms",
+            "library")},
+        "device_ms": sorted(runs)[len(runs) // 2] if runs else None,
+        "sass": tensor_core_sass(report["library"], "flash_fwd_kernel"),
+    }
+    if not f32_row["sass"] or not all(
+            c.get("HMMA", 0) + c.get("HGMMA", 0) > 0
+            for c in f32_row["sass"].values()):
+        raise AssertionError("flash_fwd_kernel's SASS has no tensor-core "
+                             f"instruction: {f32_row['sass']}")
+    rows.append(f32_row)
 
     emit({"phase": "kernels", "card": smi, "checked": [
         {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
@@ -1717,7 +1773,8 @@ def main() -> int:
                            "active_clusters",
                            "schedules_ms", "dense_fold_same_masks_ms",
                            "edge_cases", "build", "sass",
-                           "duplicates_last_write", "jagged", "operand_sets")
+                           "duplicates_last_write", "alternating_ms",
+                           "jagged", "operand_sets")
          if k in r} for r in rows]})
 
     # the fold against the parity path across scheduler buckets, at the

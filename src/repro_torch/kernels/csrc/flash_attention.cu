@@ -4,7 +4,8 @@
 // kpos > qpos - window if a window is set. Masked scores take the finite
 // value -1e30 (not -inf), the padding keys >= sk take -inf, the f32 carry
 // is (acc, m, l), and the epilogue is acc / max(l, 1e-30) cast to the
-// input type.
+// input type. Takes float32 and bfloat16 operands at every head dim up to
+// 256 (bf16 at d 64 and 128 goes to flash_attention_wgmma.cu instead).
 //
 // Replaces the TPU kernel of the reference package's
 // kernels/flash_attention.py (`_kernel`: a grid (B*H, q blocks, kv blocks)
@@ -12,43 +13,58 @@
 //
 // Bound: operations. The work is 4 * (unmasked q,k pairs) * d flops (the
 // two products) against 4 * (Sq + 2 Sk + Sq) * d bytes of Q/K/V/O per row
-// at f32; at the LM's shapes (S = 4096, d = 64) that is about 600 flops a
-// byte, far above the card's ridge point. This kernel runs the products on
-// the CUDA cores in f32 (no tensor cores yet), so its ceiling is the f32
-// FMA rate, not the bf16 tensor-core rate the bound is taken at.
+// at f32. Both products run on the TF32 tensor cores (mma.sync m16n8k8)
+// at f32 accuracy: each f32 operand x is split into x_hi, x rounded to
+// TF32, and x_lo, the exact rest x - x_hi truncated to TF32, and a product
+// is a_lo b_hi + a_hi b_lo + a_hi b_hi in f32 (3xTF32; one TF32 pass keeps
+// 11 bits and misses the f32 tolerance). bf16 operands are exact in TF32,
+// so Q K^T takes one pass there and P V two (P's halves). Three passes of
+// mma.sync, which Hopper issues at a fraction of wgmma's rate, are what
+// bound this kernel at long sequences (PERF.md).
 //
-// Design (a first kernel that is right and simple, not yet fast):
-// - One block of 256 threads per (bh, 64-row q tile); the blocks of the
-//   last q tiles, which see the most keys under a causal mask, go first.
-//   A loop over 64-key tiles takes the place of the TPU's sequential kv
-//   grid axis, and the carry lives in registers.
-// - q (scaled once), k and v are converted to f32 as they are staged into
-//   shared memory; q and k are stored transposed ([d][64 + 4]) so that a
-//   thread reads four rows (or four keys) of one column as one float4.
-// - The threads form a 16 x 16 grid: thread (tx, ty) computes the 4 x 4
-//   scores of rows 4ty.. and keys 4tx.. (register tiling), takes the row
-//   max and row sum over the 16 lanes of its half-warp with shuffles, and
-//   writes its probabilities transposed to shared memory for the P.V
-//   product, where it owns 4 rows x d/16 output columns.
-// - Ragged edges (rows >= Sq, keys >= Sk, columns >= d) are zero-filled in
-//   shared memory, which is what the reference's zero padding of Sq and Sk
-//   does. Keys >= Sk take -inf, not -1e30, so p = 0 there exactly: a row
-//   that the mask empties (Sq > Sk with a window) averages its Sk real
-//   keys, as the plain version does, and the padding never enters l. The
-//   last key tile always holds a real key, so m stays finite. Head dims
-//   up to 256 are taken by padding the column count to the next of 16,
-//   32, 64, 128, 256 in the tiles.
-// - Key tiles that the mask empties for every row of the q tile are
-//   skipped: those after the diagonal under a causal mask, and, with a
-//   window and Sq <= Sk, those before the window. Both skips give the same
-//   bits as computing them: after the diagonal p = exp(-1e30 - m) = 0 and
-//   alpha = 1; before the window the finite -1e30 gives p = 1 garbage that
-//   the first tile holding a real key wipes with alpha = exp(-1e30 - m) = 0
-//   (a row under a causal mask with window >= 1 always holds its diagonal
-//   key).
-// - expf, never __expf: the f32 result holds the reference's tolerance.
-// Later work (ROADMAP): tensor cores (mma/wgmma), TMA or cp.async staging
-// with a pipeline of tiles, and a split of long key ranges across blocks.
+// Design:
+// - One block of 4 warps per (bh, 64-row q tile); the blocks of the last q
+//   tiles, which see the most keys under a causal mask, go first. A warp
+//   owns 16 q rows and walks the key tiles on its own; the block shares
+//   the staging of K and V.
+// - K/V tiles (64 keys; 32 at a padded head dim of 128 or 256) go through
+//   a ring of NS stages in shared memory by cp.async (16-byte copies that
+//   zero-fill rows >= sk and columns >= d), issued NS - 1 tiles ahead, one
+//   __syncthreads a tile. NS fills about 110 KB a block (two blocks an
+//   SM): at BERT4Rec's head (S 200, d 32, f32) the whole head is in flight
+//   from the first barrier. Each warp's 16 q rows ride with the first
+//   tile. Operands that cp.async cannot read (d not a multiple of 16
+//   bytes, or an unaligned tensor) are staged by plain loads instead.
+// - Rows are padded (Q and K: 8 elements; V: 16 bytes) so that the
+//   fragment loads below hit 32 distinct banks. Operands stay in their
+//   type in shared memory and are split into TF32 halves as a warp loads
+//   its fragments (three bit operations and a subtraction an element).
+// - S = Q K^T: the m16n8k8 A fragment takes Q's columns 2t, 2t+1 of each
+//   8 as the contraction's t, t+4, and K's B fragment the same, so both
+//   are one 8-byte (f32) or 4-byte (bf16) load a thread. The scale, with
+//   log2(e) folded in, multiplies the scores, so bf16 Q stays exact.
+// - P V takes P straight from the S accumulator: accumulator columns 2t,
+//   2t+1 become contraction index t, t+4, so V's rows are read in that
+//   order and P never passes through shared memory. Each tile's P V sums
+//   into fresh accumulators (at most 64 columns a pass), added to O in
+//   f32: the tensor cores truncate as they accumulate, so a chain as long
+//   as the sequence drifts towards the f32 tolerance at thousands of keys.
+// - The row max and sum are reduced over the 4 lanes (a quad) that hold a
+//   row; l stays a per-lane partial sum until the epilogue.
+// - A tile that no mask or skip touches runs a copy of the tile code with
+//   no predicate in its loops. Masks are evaluated only on the tiles that
+//   cross a boundary (padding, the diagonal, the window edge). Key tiles
+//   that the mask empties for every row of the block are skipped, and
+//   inside a tile a warp skips the 8-key blocks its 16 rows do not see
+//   (after the diagonal, padding, and before the window). Both skips give
+//   the same bits as computing them: after the diagonal p = exp(-1e30 -
+//   m) = 0 and alpha = 1; before the window the finite -1e30 gives p = 1
+//   garbage that the first tile holding a real key wipes with alpha =
+//   exp(-1e30 - m) = 0 (a row under a causal mask with window >= 1 and Sq
+//   <= Sk always holds its diagonal key). The padding keys take -inf, so a
+//   row that the mask empties (Sq > Sk with a window) averages its Sk real
+//   keys, as the plain version does.
+// - exp2f with log2(e) folded into the scale, never __expf.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
@@ -56,41 +72,240 @@
 
 namespace {
 
-constexpr int BQ = 64;        // q rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
-constexpr int LD = BQ + 4;    // row stride (floats) of the transposed tiles
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BQ = 16 * WARPS;  // q rows per block
 constexpr float NEG_INF = -1e30f;
+constexpr int STAGE_BUDGET = 110 * 1024;  // shared bytes a block aims at
 
-static_assert(BQ == BK, "the transposed tiles share one row stride");
+template <int DP, typename T>
+struct Tiles {
+  static constexpr int BK = DP >= 128 ? 32 : 64;  // keys per tile
+  static constexpr int LDQ = DP + 8;  // row strides, in elements of T
+  static constexpr int LDK = DP + 8;
+  static constexpr int LDV = DP + 16 / (int)sizeof(T);
+  static constexpr int Q_BYTES = BQ * LDQ * (int)sizeof(T);
+  static constexpr int STAGE_ELEMS = BK * (LDK + LDV);
+  static constexpr int STAGE_BYTES = STAGE_ELEMS * (int)sizeof(T);
+  static constexpr int FIT = (STAGE_BUDGET - Q_BYTES) / STAGE_BYTES;
+  static constexpr int NS = FIT < 2 ? 2 : (FIT > 5 ? 5 : FIT);
+  static constexpr int SMEM = Q_BYTES + NS * STAGE_BYTES;
+};
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Output columns a thread owns: 4 adjacent columns per 64 (one float4 of a
-// v row) when the padded head dim is at least 64, else one per 16.
-template <int DP>
-struct Cols {
-  static constexpr int N = DP / 16;
-  __device__ static __forceinline__ int col(int tx, int c) {
-    if constexpr (DP >= 64) {
-      return (c / 4) * 64 + tx * 4 + (c % 4);
-    } else {
-      return tx + 16 * c;
+// x = hi + lo in TF32: hi is x rounded to nearest (ties away, the bits
+// cvt.rna.tf32.f32 gives for a finite x), x - hi is exact in f32 and is
+// truncated to TF32 (an error below 2^-22 |x|). Four instructions: the
+// operands are finite, so cvt.rna's care for NaN and infinity, which
+// costs more on sm_90a, is not needed.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// c += a b over one m16n8k8 tile (TF32 in, f32 accumulate)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Rows r0 .. r0 + ROWS - 1 of a [n, d] matrix at `base` into `dst` (row
+// stride `ld`), zero past row n and column d, by the NT threads numbered
+// `tid`: by cp.async when `vec` (d * sizeof(T) a multiple of 16 and the
+// tensors 16-byte aligned), else by plain loads.
+template <int DP, int ROWS, int NT, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld,
+                                           const T* __restrict__ src,
+                                           long long base, int r0, int n,
+                                           int d, bool vec, int tid) {
+  if (vec) {
+    constexpr int CH = 16 / (int)sizeof(T);  // elements a copy
+    constexpr int CPR = DP / CH;             // copies a row
+    static_assert(ROWS * CPR % NT == 0, "whole copies a thread");
+#pragma unroll
+    for (int j = 0; j < ROWS * CPR / NT; ++j) {
+      const int i = tid + j * NT;
+      const int r = i / CPR, c = (i % CPR) * CH;
+      const bool ok = r0 + r < n && c < d;
+      const long long off = ok ? base + (long long)(r0 + r) * d + c : base;
+      cp_async16(dst + r * ld + c, src + off, ok);
+    }
+  } else {
+    for (int i = tid; i < ROWS * DP; i += NT) {
+      const int r = i / DP, c = i % DP;
+      T x = T(0.f);
+      if (r0 + r < n && c < d) x = src[base + (long long)(r0 + r) * d + c];
+      dst[r * ld + c] = x;
     }
   }
-};
+}
 
-template <int DP>
-constexpr size_t smem_bytes() {
-  // qt [DP][LD], kt [DP][LD], vs [BK][DP], pt [BK][LD]
-  return (size_t)(2 * DP * LD + BK * DP + BK * LD) * sizeof(float);
+// Two adjacent elements (the contraction's t, t + 4) as TF32 hi and lo
+// halves; bf16 is exact in TF32, so its lo halves are never read.
+__device__ __forceinline__ void frag2(const float* p, uint32_t (&hi)[2],
+                                      uint32_t (&lo)[2]) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  split(x.x, hi[0], lo[0]);
+  split(x.y, hi[1], lo[1]);
+}
+__device__ __forceinline__ void frag2(const __nv_bfloat16* p,
+                                      uint32_t (&hi)[2], uint32_t (&)[2]) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  hi[0] = w << 16;  // bf16 -> f32 bits
+  hi[1] = w & 0xffff0000u;
+}
+__device__ __forceinline__ uint32_t bits_f32(__nv_bfloat16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x) << 16;
+}
+
+// One key tile for one warp's 16 rows: S = Q K^T, the online softmax, O +=
+// P V. FULL: every 8-key block is seen and no mask applies (no predicate
+// in the loops); else the blocks [nb_begin, nb_end) and the masks.
+template <bool FULL, int DP, typename T>
+__device__ __forceinline__ void attend_tile(
+    const T* qs, const T* ks, const T* vs, int nb_begin, int nb_end, int k0,
+    int qw, int sk, int causal, long long window, float scale_log2, int g,
+    int t, float (&m)[2], float (&l)[2], float (&o)[DP / 8][4]) {
+  using L = Tiles<DP, T>;
+  constexpr int NB = L::BK / 8, KC = DP / 8;
+  constexpr bool F32 = sizeof(T) == 4;
+  auto seen = [&](int nb) { return FULL || (nb >= nb_begin && nb < nb_end); };
+
+  // S = Q K^T: A takes Q's columns 2t, 2t + 1 of each 8 as the
+  // contraction's t, t + 4, and K's B fragment the same
+  float s[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    uint32_t h0[2], l0[2], h1[2], l1[2];
+    frag2(qs + g * L::LDQ + kc * 8 + 2 * t, h0, l0);
+    frag2(qs + (g + 8) * L::LDQ + kc * 8 + 2 * t, h1, l1);
+    const uint32_t ah[4] = {h0[0], h1[0], h0[1], h1[1]};
+    const uint32_t al[4] = {l0[0], l1[0], l0[1], l1[1]};
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      if (!seen(nb)) continue;
+      uint32_t kh[2], kl[2];
+      frag2(ks + (nb * 8 + g) * L::LDK + kc * 8 + 2 * t, kh, kl);
+      if constexpr (F32) {
+        mma(s[nb], al, kh[0], kh[1]);
+        mma(s[nb], ah, kl[0], kl[1]);
+      }
+      mma(s[nb], ah, kh[0], kh[1]);
+    }
+  }
+
+  // scale (log2 units), mask, then the online softmax of rows g, g + 8
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[nb][e] *= scale_log2;
+      if constexpr (!FULL) {
+        const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
+        const long long qpos = qw + g + 8 * (e >> 1);
+        bool ok = true;
+        if (causal) ok = kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        if (!ok) s[nb][e] = NEG_INF;
+        if (kpos >= sk) s[nb][e] = -INFINITY;  // padding: not even in l
+      }
+    }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      if (seen(nb)) mx = fmaxf(mx, fmaxf(s[nb][2 * r], s[nb][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      if (seen(nb)) {
+        s[nb][2 * r] = exp2f(s[nb][2 * r] - m_new);
+        s[nb][2 * r + 1] = exp2f(s[nb][2 * r + 1] - m_new);
+        sum += s[nb][2 * r] + s[nb][2 * r + 1];
+      }
+    l[r] = l[r] * alpha[r] + sum;
+  }
+
+  // O = alpha O + P V, P from the accumulator: its columns 2t, 2t + 1 are
+  // the contraction's t, t + 4, so thread t reads V rows 2t and 2t + 1.
+  // The tile's sum starts from zero in fresh accumulators and is added to
+  // O in f32, so no chain of tensor-core accumulations outlasts a tile; at
+  // most 64 columns a pass bound the registers that takes.
+  constexpr int CW = KC < 8 ? KC : 8;  // column blocks a pass
+#pragma unroll
+  for (int c0 = 0; c0 < KC; c0 += CW) {
+    float acc[CW][4];
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      if (!seen(nb)) continue;
+      uint32_t ph[4], pl[4];
+      split(s[nb][0], ph[0], pl[0]);
+      split(s[nb][2], ph[1], pl[1]);
+      split(s[nb][1], ph[2], pl[2]);
+      split(s[nb][3], ph[3], pl[3]);
+      const T* v0 = vs + (nb * 8 + 2 * t) * L::LDV + c0 * 8 + g;
+#pragma unroll
+      for (int j = 0; j < CW; ++j) {
+        if constexpr (F32) {
+          uint32_t vh0, vl0, vh1, vl1;
+          split(v0[j * 8], vh0, vl0);
+          split(v0[j * 8 + L::LDV], vh1, vl1);
+          mma(acc[j], pl, vh0, vh1);
+          mma(acc[j], ph, vl0, vl1);
+          mma(acc[j], ph, vh0, vh1);
+        } else {
+          const uint32_t b0 = bits_f32(v0[j * 8]);
+          const uint32_t b1 = bits_f32(v0[j * 8 + L::LDV]);
+          mma(acc[j], pl, b0, b1);
+          mma(acc[j], ph, b0, b1);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[c0 + j][e] = fmaf(o[c0 + j][e], alpha[e >> 1], acc[j][e]);
+  }
 }
 
 template <int DP, typename T>
@@ -98,163 +313,115 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int bh_count,
                  int sq, int sk, int d, int causal, long long window,
-                 float scale) {
+                 float scale_log2, int vec) {
+  using L = Tiles<DP, T>;
+  constexpr int BK = L::BK, NS = L::NS, NB = BK / 8, KC = DP / 8;
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // q tile, transposed, scaled
-  float* kt = qt + DP * LD;                     // k tile, transposed
-  float* vs = kt + DP * LD;                     // v tile, [key][column]
-  float* pt = vs + BK * DP;                     // probabilities, transposed
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // key quad (scores) / column group (output)
-  const int ty = tid / 16;  // row quad
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row group, thread in it
   const int nq = (sq + BQ - 1) / BQ;
   const int bh = blockIdx.x % bh_count;
   const int q0 = (nq - 1 - (int)(blockIdx.x / bh_count)) * BQ;
+  const int qw = q0 + 16 * warp;  // the warp's first row
+  const bool active = qw < sq;
+  const int qw_last = min(qw + 15, sq - 1);
   const long long qbase = (long long)bh * sq * d;
   const long long kbase = (long long)bh * sk * d;
 
-  for (int i = tid; i < BQ * DP; i += THREADS) {
-    const int r = i / DP, c = i % DP;
-    float x = 0.f;
-    if (q0 + r < sq && c < d)
-      x = to_f32(q[qbase + (long long)(q0 + r) * d + c]) * scale;
-    qt[c * LD + r] = x;
-  }
+  T* qs = reinterpret_cast<T*>(smem4) + warp * 16 * L::LDQ;
+  T* ring = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + L::Q_BYTES);
 
   const int nk = (sk + BK - 1) / BK;
   int kt_begin = 0, kt_end = nk;
+  const bool window_skip = causal && window > 0 && sq <= sk;
   if (causal) {
     const int q_last = min(q0 + BQ, sq) - 1;
     kt_end = min(nk, q_last / BK + 1);
-    if (window > 0 && sq <= sk) {
+    if (window_skip) {
       const long long first_key = (long long)q0 - window + 1;
       if (first_key > 0) kt_begin = (int)(first_key / BK);
     }
   }
+  const int ntiles = kt_end - kt_begin;
 
-  constexpr int NC = Cols<DP>::N;
-  float m[4], l[4], acc[4][NC];
+  // the warp's q rows ride with the first tile
+  if (active)
+    stage_rows<DP, 16, 32>(qs, L::LDQ, q, qbase, qw, sq, d, vec, lane);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < ntiles) {
+      T* ks = ring + s * L::STAGE_ELEMS;
+      const int k0 = (kt_begin + s) * BK;
+      stage_rows<DP, BK, THREADS>(ks, L::LDK, k, kbase, k0, sk, d, vec,
+                                  threadIdx.x);
+      stage_rows<DP, BK, THREADS>(ks + BK * L::LDK, L::LDV, v, kbase, k0, sk,
+                                  d, vec, threadIdx.x);
+    }
+    cp_async_commit();
   }
 
-  for (int kti = kt_begin; kti < kt_end; ++kti) {
-    const int k0 = kti * BK;
-    __syncthreads();  // the last tile's kt, vs and pt have been read
-    for (int i = tid; i < BK * DP; i += THREADS) {
-      const int r = i / DP, c = i % DP;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + r < sk && c < d) {
-        const long long off = kbase + (long long)(k0 + r) * d + c;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
-      }
-      kt[c * LD + r] = kx;
-      vs[r * DP + c] = vx;
-    }
-    __syncthreads();
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[KC][4];
+#pragma unroll
+  for (int n = 0; n < KC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-    // scores of rows 4ty.. x keys 4tx..
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DP; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + c * LD + ty * 4);
-      const float4 b = *reinterpret_cast<const float4*>(kt + c * LD + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // tile `it` is in; every warp is done with tile it - 1
+    if (it + NS - 1 < ntiles) {
+      T* ks = ring + ((it + NS - 1) % NS) * L::STAGE_ELEMS;
+      const int k0 = (kt_begin + it + NS - 1) * BK;
+      stage_rows<DP, BK, THREADS>(ks, L::LDK, k, kbase, k0, sk, d, vec,
+                                  threadIdx.x);
+      stage_rows<DP, BK, THREADS>(ks + BK * L::LDK, L::LDV, v, kbase, k0, sk,
+                                  d, vec, threadIdx.x);
     }
+    cp_async_commit();
+    if (!active) continue;
 
-    // mask, then the online softmax of each row over this tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long qpos = q0 + ty * 4 + i;
-      float rmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const long long kpos = k0 + tx * 4 + j;
-        bool ok = true;
-        if (causal) ok = kpos <= qpos;
-        if (window > 0) ok = ok && kpos > qpos - window;
-        if (!ok) s[i][j] = NEG_INF;
-        if (kpos >= sk) s[i][j] = -INFINITY;  // padding: not even in l
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      // the 16 lanes of a half-warp hold the 64 keys of the same rows
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rsum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * LD + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-    // acc += p v
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pt + kk * LD + ty * 4);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      if constexpr (DP >= 64) {
-#pragma unroll
-        for (int g = 0; g < DP / 64; ++g) {
-          const float4 v4 =
-              *reinterpret_cast<const float4*>(vs + kk * DP + g * 64 + tx * 4);
-          const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][g * 4 + e] = fmaf(pv[i], vv[e], acc[i][g * 4 + e]);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float vv = vs[kk * DP + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
+    const int k0 = (kt_begin + it) * BK;
+    // the 8-key blocks of this tile that the warp's rows can see
+    int nb_begin = 0, nb_end = min(NB, (sk - k0 + 7) / 8);
+    if (causal) nb_end = qw_last < k0 ? 0 : min(nb_end, (qw_last - k0) / 8 + 1);
+    if (window_skip) {
+      const long long first_key = (long long)qw - window + 1;
+      if (first_key > k0) {
+        const long long skip = (first_key - k0) / 8;
+        nb_begin = skip < NB ? (int)skip : NB;
       }
     }
+    if (nb_begin >= nb_end) continue;
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qw) ||
+                      (window > 0 && k0 <= (long long)qw + 15 - window);
+    const T* ks = ring + (it % NS) * L::STAGE_ELEMS;
+    const T* vs = ks + BK * L::LDK;
+    if (edge || nb_begin > 0 || nb_end < NB)
+      attend_tile<false, DP>(qs, ks, vs, nb_begin, nb_end, k0, qw, sk, causal,
+                             window, scale_log2, g, t, m, l, o);
+    else
+      attend_tile<true, DP>(qs, ks, vs, 0, NB, k0, qw, sk, causal, window,
+                            scale_log2, g, t, m, l, o);
   }
+  cp_async_wait<0>();
+  if (!active) return;
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    den = fmaxf(den, 1e-30f);
+    const int row = qw + g + 8 * r;
+    if (row >= sq) continue;
+    T* dst = out + qbase + (long long)row * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = Cols<DP>::col(tx, c);
-      if (col < d) store_as(out + qbase + (long long)r * d + col, acc[i][c] / den);
+    for (int n = 0; n < KC; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < d) store_as(dst + col, o[n][2 * r] / den);
+      if (col + 1 < d) store_as(dst + col + 1, o[n][2 * r + 1] / den);
     }
   }
 }
@@ -262,16 +429,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int DP, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int sk, int d, int causal, int window, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<DP>();
+  constexpr int smem = Tiles<DP, T>::SMEM;
   auto kern = flash_fwd_kernel<DP, T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)bh * ((sq + BQ - 1) / BQ);
-  const float scale = (float)(1.0 / sqrt((double)d));
+  // scores in log2 units: exp2f(x * log2(e) / sqrt(d)) = exp(x / sqrt(d))
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  const int vec = (d * (int)sizeof(T)) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v) % 16 == 0;
   kern<<<(unsigned)blocks, THREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, bh, sq, sk, d, causal,
-      (long long)window, scale);
+      (long long)window, scale_log2, vec);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,10 @@ for tensors on the card, chosen by operand type (:func:`_kernel_for`):
 bfloat16 at a head dim of 64 or 128 goes to ``csrc/flash_attention_wgmma.cu``
 (Hopper's tensor cores: wgmma fed by TMA; P·V as hi + lo bf16 halves of P,
 so P keeps about 16 mantissa bits), everything else (float32, the
-other head dims up to 256) to ``csrc/flash_attention.cu`` (f32 on the CUDA
-cores). Both replace the reference package's TPU kernel
+other head dims up to 256) to ``csrc/flash_attention.cu`` (the TF32 tensor
+cores through ``mma.sync``, each f32 operand split into TF32 hi + lo
+halves and each product taken in three passes: f32 accuracy). Both replace
+the reference package's TPU kernel
 ``kernels/flash_attention.py::_kernel``; the function is bound by
 operations, 4·d flops per unmasked (q, k) pair. It takes
 :func:`flash_attention_plain` only for tensors on the CPU. The kernels
@@ -42,19 +44,19 @@ MAX_HEAD_DIM = 256
 WGMMA_HEAD_DIMS = (64, 128)
 # the two kernels by their CUDA names (what a profiler shows), with the
 # q rows of one block of each
-SIMT_KERNEL, WGMMA_KERNEL = "flash_fwd_kernel", "flash_wgmma_kernel"
-TILE_Q = {SIMT_KERNEL: 64, WGMMA_KERNEL: 128}
+TF32_KERNEL, WGMMA_KERNEL = "flash_fwd_kernel", "flash_wgmma_kernel"
+TILE_Q = {TF32_KERNEL: 64, WGMMA_KERNEL: 128}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _kernel_for(dtype: torch.dtype, d: int) -> str:
     """Which kernel takes operands of this type and head dim: bfloat16 at
-    d = 64 or 128 goes to the tensor cores (``flash_attention_wgmma.cu``),
-    everything else to ``flash_attention.cu``. A choice by operand type,
-    not a fallback: either kernel raises when it fails."""
+    d = 64 or 128 goes to wgmma (``flash_attention_wgmma.cu``), everything
+    else to mma.sync in 3xTF32 (``flash_attention.cu``). A choice by
+    operand type, not a fallback: either kernel raises when it fails."""
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return WGMMA_KERNEL
-    return SIMT_KERNEL
+    return TF32_KERNEL
 
 
 def _check_args(q, k, v, window) -> None:
@@ -153,4 +155,4 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
-flash_attention_fwd.kernel_launches = {SIMT_KERNEL: 0, WGMMA_KERNEL: 0}
+flash_attention_fwd.kernel_launches = {TF32_KERNEL: 0, WGMMA_KERNEL: 0}

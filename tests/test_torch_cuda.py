@@ -970,6 +970,76 @@ def test_wgmma_flash_kernel_matches_plain(cuda_device, d, sq, sk, causal,
                                **FLASH_TOL[torch.bfloat16])
 
 
+# the f32 kernel (flash_attention.cu: 3xTF32 on mma.sync, blocks of four
+# 16-row warps over 64 q rows, 64-key tiles, 32 at a head dim over 64):
+# lengths off the warp's 16 rows, the block's 64 and the key tiles, Sq !=
+# Sk both ways, windows around those edges; every head dim it pads to (16
+# to 256) in f32, and bf16 at the head dims the wgmma kernel does not take;
+# then the exact operand shapes of chip_smoke.py's (c) (BERT4Rec) and (e)
+# (the LM's f32 check)
+F32_KERNEL_LENGTHS = [(1, 70), (15, 15), (16, 16), (17, 17), (70, 129),
+                      (129, 129), (200, 200), (300, 500), (500, 300)]
+F32_KERNEL_WINDOWS = [None, 1, 16, 17, 65]
+F32_KERNEL_OPERANDS = ([(torch.float32, d)
+                        for d in (16, 32, 48, 64, 96, 128, 256)]
+                       + [(torch.bfloat16, d) for d in (16, 32, 48, 96, 256)])
+F32_KERNEL_CASES = [
+    pytest.param(2, sq, sk, d, dtype, causal, window,
+                 id=f"{str(dtype)[6:]}-d{d}-{sq}x{sk}-"
+                    f"{'causal' if causal else 'full'}-w{window}")
+    for dtype, d in F32_KERNEL_OPERANDS
+    for sq, sk in F32_KERNEL_LENGTHS
+    for causal in (True, False)
+    for window in F32_KERNEL_WINDOWS
+] + [
+    # a head dim cp.async cannot copy in 16-byte pieces: plain loads
+    pytest.param(2, sq, sk, 17, dtype, causal, window,
+                 id=f"{str(dtype)[6:]}-d17-{sq}x{sk}-"
+                    f"{'causal' if causal else 'full'}-w{window}")
+    for dtype in (torch.float32, torch.bfloat16)
+    for sq, sk in ((70, 129), (129, 129))
+    for causal in (True, False)
+    for window in (None, 16)
+] + [
+    pytest.param(64, 200, 200, 32, torch.float32, False, None,
+                 id="c_bert4rec"),
+    pytest.param(9, 256, 256, 64, torch.float32, True, None,
+                 id="e_lm_f32_check"),
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,window", F32_KERNEL_CASES)
+def test_f32_flash_kernel_matches_plain(cuda_device, bh, sq, sk, d, dtype,
+                                        causal, window):
+    q, k, v = _flash_case(bh, sq, sk, d, dtype, cuda_device,
+                          seed=sq + 7 * sk + d)
+    before = dict(flash_attention_fwd.kernel_launches)
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    after = flash_attention_fwd.kernel_launches
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == "flash_fwd_kernel") for n in after}
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_f32_flash_kernel_reads_unaligned_operands(cuda_device, dtype):
+    """Views that start one element into their buffers are not 16-byte
+    aligned: the f32 kernel stages them by plain loads and agrees."""
+    q, k, v = _flash_case(2, 129, 129, 32, dtype, cuda_device, seed=3)
+    views = []
+    for t in (q, k, v):
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=cuda_device)
+        views.append(flat[1:].view(t.shape))
+        views[-1].copy_(t)
+    got = flash_attention_fwd(*views, causal=True, window=17)
+    want = flash_attention_plain(q, k, v, causal=True, window=17)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
 def test_the_lm_operands_go_through_the_wgmma_kernel(cuda_device):
     """bf16 at d 64 (SmolLM's heads) launches the tensor-core kernel; the
     same operands in f32, and bf16 at d 32, launch the f32 kernel."""

@@ -8,6 +8,8 @@ packages' CPU sums run in other orders, and these shapes stay inside them.
 The CUDA kernel is held to the same plain version on the card in
 tests/test_torch_cuda.py."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,3 +155,86 @@ def test_wrapper_rejects_mismatched_shapes():
         flash_attention_fwd(q, k[:, :, :4], v)
     with pytest.raises(ValueError):
         flash_attention_fwd(q[0], k[0], v[0])
+
+
+# --------------------------------------------- the f32 kernel's precision
+# csrc/flash_attention.cu runs both products on the TF32 tensor cores:
+# each f32 operand x as hi = x rounded to TF32 (to nearest, ties away, as
+# cvt.rna.tf32.f32 does: add half of the 13 dropped mantissa bits, mask
+# them) plus lo = x - hi (exact in f32) truncated to TF32, and every product
+# as a_lo b_hi + a_hi b_lo + a_hi b_hi. The products of TF32 values are
+# exact in f32, so a float32 matmul of them is what the tensor cores sum.
+_TF32_DROP = 0x1FFF  # the 13 mantissa bits TF32 drops
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~_TF32_DROP).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor):
+    hi = _tf32_round(x)
+    lo = ((x - hi).contiguous().view(torch.int32) & ~_TF32_DROP).view(
+        torch.float32)
+    return hi, lo
+
+
+def _tf32_product(a, b, passes):
+    """a @ b from TF32 halves: 3 passes (a_lo b_hi + a_hi b_lo + a_hi b_hi),
+    2 (b exact in TF32: a_lo b + a_hi b) or 1 (a_hi b_hi)."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    if passes == 1:
+        return ah @ bh
+    if passes == 2:
+        return al @ b + ah @ b
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_in_tf32(q, k, v, causal, qk_passes, pv_passes):
+    d = q.shape[-1]
+    s = _tf32_product(q, k.transpose(1, 2), qk_passes) / math.sqrt(d)
+    if causal:
+        pos = torch.arange(q.shape[1])
+        s = s.masked_fill(pos[None, :] > pos[:, None], -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return _tf32_product(p, v, pv_passes) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("bh,s,d,causal,bf16_values", [
+    (4, 200, 32, False, False),  # BERT4Rec's heads, f32
+    (3, 256, 64, True, False),   # the LM's f32 check
+    (3, 256, 48, True, True),    # bf16 operands at a head dim off wgmma's
+])
+def test_three_tf32_passes_hold_the_f32_tolerance_where_one_does_not(
+        bh, s, d, causal, bf16_values):
+    """The split the f32 kernel uses holds rtol = atol = 1e-5 against the
+    reference's oracle; one TF32 pass (10 mantissa bits) misses it by far.
+    For bf16 operands (exact in TF32) the kernel runs Q K^T in one pass and
+    P V in two (P's halves): that holds 1e-5 too."""
+    rng = np.random.default_rng(s + d)
+    arrays = [rng.standard_normal((bh, s, d)).astype(np.float32)
+              for _ in range(3)]
+    if bf16_values:
+        arrays = [torch.from_numpy(a).bfloat16().float().numpy()
+                  for a in arrays]
+    q, k, v = _torch(*arrays)
+    want = np.asarray(jref.flash_attention_ref(*_jax(*arrays), causal=causal))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    split = (1, 2) if bf16_values else (3, 3)
+    got = _attention_in_tf32(q, k, v, causal, *split)
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+    one_pass = _attention_in_tf32(q, k, v, causal, 1, 1)
+    assert not np.allclose(one_pass.numpy(), want, **tol)
+    assert np.abs(one_pass.numpy() - want).max() > 10 * np.abs(
+        got.numpy() - want).max()
+
+
+def test_the_tf32_rounding_is_to_nearest_ties_away():
+    # 1 + 2^-11 is half a TF32 ulp above 1: ties away, up to 1 + 2^-10;
+    # just below the half rounds down; hi + lo misses x by less than 2^-22 x
+    x = torch.tensor([1 + 2.0**-11, 1 + 2.0**-11 - 2.0**-23, -(1 + 2.0**-11),
+                      3.0], dtype=torch.float32)
+    hi, lo = _tf32_split(x)
+    assert hi.tolist() == [1 + 2.0**-10, 1.0, -(1 + 2.0**-10), 3.0]
+    assert ((hi + lo - x).abs() <= 2.0**-22 * x.abs()).all()
