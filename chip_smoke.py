@@ -8,7 +8,13 @@ paper's own workload (10^6 records of 1536 bytes, d = 100 databases,
 Sparse-PIR at θ = 0.25 and Chor): one private lookup, Chor in buckets of
 128 on the planner's own fold/parity choice (the parity path on the int8
 tensor cores), serving a live store that takes update, delete and append
-deltas, and multi-index requests. Between the kernel checks and the paths,
+deltas, and multi-index requests; the paper's other schemes on the same
+store (Direct Requests with p = d, Subset-PIR among t = d_a + 1 replicas
+picked by the pipeline's latency ranking, Sparse-PIR through an anonymity
+set of u = 1000), the cross-batch cache (hits, a banked precompute) and
+the measured planner (the autotune search of a sparse and a Chor cell,
+its table saved, reloaded, and a foreign one dropped). Between the kernel
+checks and the paths,
 the fold is timed against the parity path across scheduler buckets at n
 cut to 65 536 and at the full 10^6 (phase ``crossover``). Then the
 attention models at full width: SmolLM-135M serving (prefill and
@@ -964,6 +970,308 @@ def serve_chor_ct_b128(pir_ct, cfg, store, dev, rng, wrappers,
           "forced_fold_too": runs[0]["path"] == "parity", "runs": runs,
           "parity_launches": counts["parity_matmul_packed"]})
     return counts
+
+
+def serve_scheme(label, pir_ct, cfg, store, dev, rng, wrappers, expect,
+                 path, servers_per_batch, flushes=2, batch=8):
+    """One of the paper's other schemes on the CT store through the
+    config's pipeline: ``flushes`` flushes of ``batch`` lookups, every
+    record checked, each wrapper in ``expect`` launched exactly
+    ``expect[name]`` times a batch (and no other answer kernel), the
+    backend's ``path`` counted ``servers_per_batch`` times a batch. The
+    replicas each flush contacted ride along (Subset-PIR takes the
+    pipeline's latency-EMA ranking)."""
+    pipe = pir_ct.make_serving_pipeline(cfg, store=store, device=dev, seed=3)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    at_start = {k: f_.launches for k, f_ in wrappers.items()}
+    times, contacted = [], []
+    for f in range(flushes):
+        seen = {s: st.n for s, st in pipe.backend.stats.items()}
+        before = {k: f_.launches for k, f_ in wrappers.items()}
+        picks = rng.integers(0, store.n, size=batch)
+        for c, i in enumerate(picks):
+            if not pipe.submit(f"client-{c}", int(i)):
+                raise AssertionError(f"{label}: budget refused a query")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.flush()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        for c, i in enumerate(picks):
+            if not np.array_equal(out[f"client-{c}"],
+                                  store.record_bytes(int(i))):
+                raise AssertionError(f"{label}: wrong record {int(i)}")
+        grew = {k: f_.launches - before[k] for k, f_ in wrappers.items()}
+        want = {k: expect.get(k, 0) for k in grew}
+        if grew != want:
+            raise AssertionError(f"{label}: launches {grew}, want {want}")
+        contacted.append(sorted(s for s, st in pipe.backend.stats.items()
+                                if st.n > seen.get(s, 0)))
+        if len(contacted[-1]) != servers_per_batch:
+            raise AssertionError(f"{label}: contacted {contacted[-1]}")
+    if pipe.backend.path_counts[path] != servers_per_batch * flushes:
+        raise AssertionError(f"{label}: {pipe.backend.path_counts}")
+    eps, delta = pipe.price
+    spent = pipe.budget("client-0").spent_epsilon
+    if spent != flushes * eps:
+        raise AssertionError(f"{label}: client-0 spent {spent}, not "
+                             f"{flushes} x {eps}")
+    line = {
+        "phase": label, "scheme": cfg.scheme, "n": store.n,
+        "record_bytes": cfg.record_bytes, "d": cfg.d, "d_a": cfg.d_a,
+        "signature": list(pipe.staged.signature),
+        "batch": batch, "flushes": flushes, "flush_s": times,
+        "lookups_per_s": batch / times[-1], "exact": True,
+        "epsilon_per_query": eps, "delta_per_query": delta,
+        "path_counts": dict(pipe.backend.path_counts),
+        "contacted": contacted,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_allocated_before": resident,
+        "launches_this_phase": {
+            k: f_.launches - at_start[k] for k, f_ in wrappers.items()
+            if f_.launches != at_start[k]},
+    }
+    emit(line)
+    del pipe
+    torch.cuda.empty_cache()
+    return line
+
+
+def serve_cached(pir_ct, cfg, store, dev, rng, wrappers):
+    """The cross-batch cache on the CT store (Sparse-PIR, batch 8, the
+    config's ``cache_entries``): a batch of misses; the same (client,
+    index) pairs again, answered from the memo with no kernel launch and
+    the budget spent all the same; a pre banked by ``prefill_cache`` and
+    consumed by a batch of new misses."""
+    label = "serve_cached_sparse_ct"
+    pipe = pir_ct.make_serving_pipeline(cfg, store=store, device=dev, seed=3)
+    cache = pipe.cache
+    if cache is None or cache.max_entries != cfg.cache_entries:
+        raise AssertionError(f"{label}: the config attached no cache")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    eps = pipe.price[0]
+    batch = 8
+
+    def flush(picks, what, expect_kernels):
+        before = {k: f_.launches for k, f_ in wrappers.items()}
+        for c, i in enumerate(picks):
+            if not pipe.submit(f"client-{c}", int(i)):
+                raise AssertionError(f"{label}: budget refused a query")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = pipe.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        for c, i in enumerate(picks):
+            if not np.array_equal(out[f"client-{c}"],
+                                  store.record_bytes(int(i))):
+                raise AssertionError(f"{label}: wrong record {int(i)}")
+        grew = {k: f_.launches - before[k] for k, f_ in wrappers.items()
+                if f_.launches != before[k]}
+        if bool(grew) != expect_kernels:
+            raise AssertionError(f"{label} ({what}): launches {grew}")
+        return dt, grew
+
+    picks = rng.integers(0, store.n, size=batch)
+    miss_s, miss_launches = flush(picks, "misses", True)
+    hit_s, hit_launches = flush(picks, "hits", False)
+    if pipe.metrics["cache_hits"] != batch:
+        raise AssertionError(f"{label}: {pipe.metrics['cache_hits']} hits")
+    if pipe.budget("client-0").spent_epsilon != 2 * eps:
+        raise AssertionError(f"{label}: a hit did not spend its epsilon")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    banked = pipe.prefill_cache(batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    if banked != 1 or cache.pre_depth(batch) != 1:
+        raise AssertionError(f"{label}: prefill banked {banked}")
+    pre_bytes = cache.pre_bytes
+    peak_with_pre = torch.cuda.max_memory_allocated()
+    fresh = rng.integers(0, store.n, size=batch)
+    pre_s, pre_launches = flush(fresh, "misses on the banked pre", True)
+    if cache.metrics["pre_used"] != 1 or cache.pre_depth(batch) != 0:
+        raise AssertionError(f"{label}: the pre was not consumed")
+    line = {
+        "phase": label, "scheme": cfg.scheme, "n": store.n,
+        "record_bytes": cfg.record_bytes, "d": cfg.d, "batch": batch,
+        "cache_entries": cache.max_entries,
+        "flush_s": {"misses": miss_s, "hits": hit_s,
+                    "misses_on_pre": pre_s},
+        "lookups_per_s": {"misses": batch / miss_s, "hits": batch / hit_s,
+                          "misses_on_pre": batch / pre_s},
+        "prefill_s": prefill_s, "pre_bytes": pre_bytes,
+        "launches": {"misses": miss_launches, "hits": hit_launches,
+                     "misses_on_pre": pre_launches},
+        "epsilon_per_query": eps,
+        "epsilon_spent_client_0": pipe.budget("client-0").spent_epsilon,
+        "cache_metrics": dict(cache.metrics),
+        "pipeline_cache_hits": pipe.metrics["cache_hits"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_with_pre": peak_with_pre,
+        "memory_allocated_before": resident,
+    }
+    emit(line)
+    del pipe, cache
+    torch.cuda.empty_cache()
+    return line
+
+
+def autotune_ct(pir_ct, cfg, store, dev, rng, smi):
+    """The measured planner on the CT store: the sparse cell at bucket 8
+    planned by a flush of the config's pipeline and tuned by its idle-time
+    hook (``autotune_step``), the Chor cell at bucket 128 planned by the
+    planner and tuned by ``tune_pending``; each candidate's µs, the prior's
+    choice and the winner; each winner's answer against the plain fold,
+    bit for bit; every raced candidate a kernel, the winner the fastest,
+    and no slower than the plain versions, timed the same way outside the
+    race; the table saved, reloaded, and a table in the JAX package's
+    fingerprint (``{"platform": "gpu", ...}``) dropped."""
+    import types
+
+    from repro_torch._device import device_fingerprint
+    from repro_torch.kernels.backend import (
+        AutotuneTable,
+        PlanCandidate,
+        _measure_us,
+        _path_answer_fn,
+    )
+    from repro_torch.kernels.xor_fold import xor_fold_plain
+    from repro_torch.serve import ShardedBackend
+
+    table = AutotuneTable(dev)
+    backend = ShardedBackend(store, autotune=table, device=dev)
+    pipe = pir_ct.make_serving_pipeline(cfg, store=store, device=dev,
+                                        seed=3, backend=backend)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cells, tuned_cells = [], []
+
+    def flush(what):
+        picks = rng.integers(0, store.n, size=8)
+        for c, i in enumerate(picks):
+            if not pipe.submit(f"{what}-{c}", int(i)):
+                raise AssertionError("autotune_ct: budget refused a query")
+        out = pipe.flush()
+        for c, i in enumerate(picks):
+            if not np.array_equal(out[f"{what}-{c}"],
+                                  store.record_bytes(int(i))):
+                raise AssertionError(f"autotune_ct: wrong record {int(i)}")
+        (plan,) = backend.planner._plans.values()
+        return plan
+
+    def record(name, bucket, theta, prior, tune):
+        key = backend.planner._table_key(name, bucket, "cuda", theta)
+        if backend.planner.pending() != (key,):
+            raise AssertionError(f"autotune_ct: pending "
+                                 f"{backend.planner.pending()}")
+        tuned_cells.append((key, backend.planner._pending[key]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tuned = tune()
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t
+        entry = table.get(key)
+        if tuned != 1 or entry is None or entry["source"] != "measured":
+            raise AssertionError(f"autotune_ct: {name} b{bucket} not tuned")
+        us = entry["us"]
+        if not all(k.split("+")[0].endswith("/cuda") for k in us):
+            raise AssertionError(f"autotune_ct: not a kernel: {list(us)}")
+        winner = PlanCandidate(entry["path"], entry["impl"],
+                               tuple(sorted(entry["blocks"].items())))
+        if entry["impl"] != "cuda" or min(us, key=us.get) != winner.label:
+            raise AssertionError(f"autotune_ct: {winner.label} is not the "
+                                 f"fastest of {us}")
+        return key, {
+            "cell": f"{name} b{bucket}", "key": list(key),
+            "prior": prior.describe(), "prior_blocks": dict(prior.blocks),
+            "winner": f"{entry['path']}/{entry['impl']}",
+            "winner_blocks": entry["blocks"], "us": entry["us"],
+            "tune_s": tune_s, "device": entry["device"],
+        }
+
+    # the sparse cell: a flush plans it from the prior, the idle hook
+    # measures it, the next flush runs the winner
+    sch = pipe.staged
+    prior = flush("prior")
+    if prior.source != "model":
+        raise AssertionError(f"autotune_ct: {prior.describe()}")
+    key, row = record("sparse", 8, cfg.theta, prior,
+                      lambda: pipe.autotune_step())
+    measured = flush("measured")
+    if measured.source != "measured":
+        raise AssertionError(f"autotune_ct: {measured.describe()}")
+    mask = random_mask(rng, 8, store.n, cfg.theta, dev)
+    row["max_abs_err_vs_plain_fold"] = max_abs_err(
+        measured(mask), xor_fold_plain(store.packed, mask))
+    cells.append(row)
+    # the Chor cell at bucket 128
+    chor = pir_ct.scheme_from_config(dataclasses.replace(cfg, scheme="chor"))
+    wire = types.SimpleNamespace(kind="mask", theta=None)
+    prior = backend.planner.plan(wire, 128, scheme=chor.staged)
+    key, row = record("chor", 128, None, prior, backend.tune_pending)
+    measured = backend.planner.plan(wire, 128, scheme=chor.staged)
+    mask = random_mask(rng, 128, store.n, 0.5, dev)
+    row["max_abs_err_vs_plain_fold"] = max_abs_err(
+        measured(mask), xor_fold_plain(store.packed, mask))
+    cells.append(row)
+    if any(c["max_abs_err_vs_plain_fold"] != 0 for c in cells):
+        raise AssertionError(f"autotune_ct: a winner differs: {cells}")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the plain versions are no candidates; timed here on the same payload
+    # in the same way, the measured winner must not lose to them
+    planner = backend.planner
+    for row, (key, cell) in zip(cells, tuned_cells):
+        payload = planner._bench_payload(key, cell)
+        plain = {}
+        for c in planner._candidates(dataclasses.replace(cell, impl="ref")):
+            fn = planner._build_run(c.path, _path_answer_fn(
+                c.path, c.impl, cell.m_budget, dict(c.blocks)))
+            plain[c.label] = _measure_us(fn, payload, candidate=c)
+        del payload
+        row["plain_us"] = plain
+        if min(row["us"].values()) > min(plain.values()):
+            raise AssertionError(f"autotune_ct: the winner lost to the "
+                                 f"plain version: {row}")
+    # save, reload (same device, same shape: everything kept), and a table
+    # fingerprinted as the JAX package fingerprints this card: dropped
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "autotune_ct.json")
+    backend.save_autotune(path)
+    again = ShardedBackend(store, autotune=AutotuneTable(dev),
+                           autotune_file=path, device=dev)
+    kept = {k: v for k, v in again.planner.table.items()}
+    if again.autotune_dropped != 0 or kept != dict(table.items()):
+        raise AssertionError("autotune_ct: the reload changed the table")
+    foreign = AutotuneTable(dev)
+    for k, v in table.items():
+        foreign.put(k, v["path"], impl=v["impl"], source=v["source"],
+                    blocks=v["blocks"], us=v["us"],
+                    device={"platform": "gpu",
+                            "device_kind": torch.cuda.get_device_name(0)},
+                    store_shape=v["store_shape"])
+    foreign_path = str(out_dir / "autotune_ct_foreign.json")
+    foreign.dump(foreign_path)
+    other = ShardedBackend(store, autotune=AutotuneTable(dev),
+                           autotune_file=foreign_path, device=dev)
+    if other.autotune_dropped != len(table) or len(other.planner.table):
+        raise AssertionError("autotune_ct: a foreign table was merged")
+    line = {"phase": "autotune_ct", "card": smi, "n": store.n,
+            "record_bytes": cfg.record_bytes, "d": cfg.d, "cells": cells,
+            "entries": len(table), "reloaded": len(kept),
+            "foreign_dropped": other.autotune_dropped,
+            "fingerprint": device_fingerprint(dev),
+            "max_memory_allocated": peak,
+            "memory_allocated_before": resident}
+    emit(line)
+    del pipe, backend, again, other, measured, prior
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 def check_flash(label, bh, sq, d, dtype, causal, window, dev,
@@ -1934,11 +2242,37 @@ def main() -> int:
         "sparse")
     by_path["serve_multi_reduced"] = read_counts()
 
-    # ------------------------------------- 9 the attention models: SmolLM
+    # --------------------- 9 the paper's other schemes, the cache, autotune
+    # each on the CT store at full width: Direct Requests (p = d), Subset-
+    # PIR among t = d_a + 1 of the d replicas (the smallest t with δ = 0,
+    # the replicas the pipeline's latency-EMA ranking picks), Sparse-PIR
+    # through an anonymity set of the config's u = 1000 users
+    d = cfg.d
+    for label, cfg_, expect, path, servers in (
+            ("serve_direct_ct", dataclasses.replace(online, scheme="direct"),
+             {}, "direct", d),
+            ("serve_subset_ct", dataclasses.replace(
+                online, scheme="subset", t=cfg.d_a + 1),
+             {"xor_fold": cfg.d_a + 1}, "fold", cfg.d_a + 1),
+            ("serve_as_sparse_ct", dataclasses.replace(
+                online, scheme="as-sparse"),
+             {"gather_xor": d, "indices_from_mask": d}, "sparse", d)):
+        reset_counts()
+        serve_scheme(label, pir_ct, cfg_, store, dev, rng, wrappers, expect,
+                     path, servers)
+        by_path[label] = read_counts()
+    reset_counts()
+    serve_cached(pir_ct, online, store, dev, rng, wrappers)
+    by_path["serve_cached_sparse_ct"] = read_counts()
+    reset_counts()
+    autotune_ct(pir_ct, online, store, dev, rng, smi)
+    by_path["autotune_ct"] = read_counts()
+
+    # ------------------------------------ 10 the attention models: SmolLM
     by_path.update(serve_lm_smollm(dev, smi, flash_attention_fwd,
                                    read_counts, reset_counts))
 
-    # --------------------------------------------- 10 private BERT4Rec
+    # --------------------------------------------- 11 private BERT4Rec
     by_path["serve_private_bert4rec"] = serve_private_bert4rec(
         dev, smi, flash_attention_fwd, xor_fold, read_counts, reset_counts)
 

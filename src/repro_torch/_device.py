@@ -7,6 +7,7 @@ when the caller names it (the unit tests do).
 
 from __future__ import annotations
 
+import platform
 from typing import Dict, Optional, Union
 
 import torch
@@ -28,12 +29,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-def device_fingerprint() -> Dict[str, str]:
-    """Identity of the card measurements on this host are valid for."""
-    resolve_device(None)
+def device_fingerprint(device: DeviceLike = None) -> Dict[str, str]:
+    """Identity of the device a measurement on this host is valid for:
+    ``{"platform": "cuda", "device_kind": <the card's name>}`` for a CUDA
+    device (``None``: the card, an error without one), and
+    ``{"platform": "cpu", "device_kind": "<machine> (torch)"}`` for the
+    CPU. Autotune entries are stamped with it. The CPU's kind names this
+    package, so that a table the JAX package measured on the same host
+    (kind ``"cpu"``) never passes for one of this package's."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return {
+            "platform": "cuda",
+            "device_kind": torch.cuda.get_device_name(dev),
+        }
     return {
-        "platform": "cuda",
-        "device_kind": torch.cuda.get_device_name(0),
+        "platform": dev.type,
+        "device_kind": f"{platform.machine() or 'unknown'} (torch)",
     }
 
 

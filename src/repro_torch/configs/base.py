@@ -141,11 +141,13 @@ class PIRConfig:
     # async ingest front (not ported yet; carried for config compatibility)
     ingest_workers: int = 2
     queue_limit: int = 8192
-    # cross-batch cache (not ported yet: read, and ignored with a log line)
+    # cross-batch cache (repro_torch.serve.QueryCache); 0 = no cache
     cache_entries: int = 4096
     # execution-backend layer (repro_torch.kernels.backend)
     backend: str = "auto"             # registered backend: auto|cuda|ref
-    autotune_file: str = ""           # not ported yet; carried
+    autotune_file: str = ""           # JSON autotune table: loaded at
+                                      # start (foreign entries dropped);
+                                      # "" = none
     fused_vmem_budget_bytes: int = 0  # fused-kernel shared-memory gate
                                       # override (the name is the reference
                                       # config's); 0 = ask the device

@@ -10,12 +10,9 @@ from "the paper's workload" to a running, budgeted, batch-scheduled
 server on the card."""
 
 import dataclasses
-import logging
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import PIRConfig, ShapeSpec
-
-log = logging.getLogger(__name__)
 
 CONFIG = PIRConfig(
     name="pir-ct",
@@ -71,13 +68,17 @@ def make_serving_pipeline(
     :class:`~repro_torch.db.live.VersionedStore` is served through its
     current head). ``device=None`` is the CUDA card.
     ``kw`` forwards to the pipeline (budgets, backend, seed).
-    ``cfg.backend`` / ``cfg.fused_vmem_budget_bytes`` configure the
-    execution-backend layer unless a ready ``backend=`` instance is
-    passed in ``kw``. ``cfg.cache_entries`` is read but the cross-batch
-    cache is not ported yet: a positive value is ignored with one logged
-    line."""
+    ``cfg.cache_entries > 0`` attaches the cross-batch QueryCache;
+    ``cfg.backend`` / ``cfg.autotune_file`` /
+    ``cfg.fused_vmem_budget_bytes`` configure the execution-backend layer
+    unless a ready ``backend=`` instance is passed in ``kw``."""
     from repro_torch.db import make_synthetic_store
-    from repro_torch.serve import BatchScheduler, ServingPipeline, ShardedBackend
+    from repro_torch.serve import (
+        BatchScheduler,
+        QueryCache,
+        ServingPipeline,
+        ShardedBackend,
+    )
 
     dev = resolve_device(device)
     if store is None:
@@ -87,15 +88,14 @@ def make_serving_pipeline(
     frozen = store.snapshot() if hasattr(store, "snapshot") else store
     scheme = scheme_from_config(cfg)
     if cfg.cache_entries > 0 and "cache" not in kw:
-        log.info(
-            "cache_entries=%d ignored: the cross-batch QueryCache is not "
-            "ported yet (ROADMAP.md Queue A)", cfg.cache_entries,
-        )
+        kw["cache"] = QueryCache(scheme, frozen.n,
+                                 max_entries=cfg.cache_entries)
     if "backend" not in kw:
         kw["backend"] = ShardedBackend(
             frozen,
             simulate_latency=kw.pop("simulate_latency", None),
             backend=cfg.backend,
+            autotune_file=cfg.autotune_file or None,
             smem_budget_bytes=cfg.fused_vmem_budget_bytes or None,
             device=dev,
         )

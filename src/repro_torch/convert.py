@@ -81,19 +81,21 @@ def queries_from_numpy(
     device: DeviceLike = None,
     store_version: Optional[int] = None,
 ) -> Queries:
-    """A wire payload ([d, B, n] {0,1} masks) -> :class:`Queries` on
-    ``device``."""
-    if kind != "mask":
-        raise NotImplementedError(
-            f"wire kind {kind!r} is not ported yet; see ROADMAP.md Queue A"
-        )
+    """A wire payload ([d, B, n] {0,1} masks for the ``mask`` kind,
+    [d, B, p/d] record indices for the ``index`` kind) -> :class:`Queries`
+    on ``device``."""
     dev = resolve_device(device)
-    masks = _owned(payload, np.uint8)
-    if masks.ndim != 3:
-        raise ValueError("a mask payload is [d, B, n]")
+    if kind == "mask":
+        arr = _owned(payload, np.uint8)
+    elif kind == "index":
+        arr = _owned(payload, np.int32)
+    else:
+        raise ValueError(f"unknown wire kind {kind!r}")
+    if arr.ndim != 3:
+        raise ValueError(f"a {kind} payload is [d, B, ...] (3-d)")
     return Queries(
         kind=kind,
-        payload=torch.from_numpy(masks).to(dev),
+        payload=torch.from_numpy(arr).to(dev),
         servers=tuple(int(s) for s in servers),
         q_idx=torch.from_numpy(_owned(q_idx, np.int32)).to(dev),
         theta=None if theta is None else float(theta),

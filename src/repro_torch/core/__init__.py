@@ -2,20 +2,34 @@
 behind the staged SchemeProtocol registry (DESIGN.md §Scheme protocol) and
 the privacy-accounting calculus.
 
-The per-scheme wire modules (chor/sparse) are internals of this package;
-everything outside goes through the protocol (``build_scheme``/...) or the
-``Scheme`` facade."""
+The per-scheme wire modules (chor/sparse/direct/subset) are internals of
+this package; everything outside goes through the protocol
+(``build_scheme``/...) or the ``Scheme`` facade. ``adversary`` is the
+paper's §2.2 distinguishability game, runnable; ``anonymity`` the ideal
+mix the ``as-*`` schemes assume."""
 
-from repro_torch.core import accounting, chor, protocol, sparse
+from repro_torch.core import (
+    accounting,
+    adversary,
+    anonymity,
+    chor,
+    direct,
+    protocol,
+    sparse,
+    subset,
+)
 from repro_torch.core.accounting import PrivacyBudget, epsilon_sparse
 from repro_torch.core.private_embedding import PrivateEmbedding
 from repro_torch.core.protocol import (
+    Anonymized,
     Answers,
     ChorScheme,
+    DirectScheme,
     MultiQueries,
     Queries,
     SchemeProtocol,
     SparseScheme,
+    SubsetScheme,
     as_protocol,
     build_scheme,
     register_scheme,
@@ -27,8 +41,10 @@ from repro_torch.core.protocol import (
 from repro_torch.core.schemes import SCHEMES, Scheme, make_scheme
 
 __all__ = [
+    "Anonymized",
     "Answers",
     "ChorScheme",
+    "DirectScheme",
     "MultiQueries",
     "PrivacyBudget",
     "PrivateEmbedding",
@@ -37,7 +53,10 @@ __all__ = [
     "Scheme",
     "SchemeProtocol",
     "SparseScheme",
+    "SubsetScheme",
     "accounting",
+    "adversary",
+    "anonymity",
     "as_protocol",
     "build_scheme",
     "epsilon_sparse",

@@ -18,11 +18,12 @@ client-side reconstruction state that rides along and must never cross the
 wire). ``gen`` is the ``torch.Generator`` all of a batch's client-private
 randomness is drawn from.
 
-Each ported scheme is a frozen dataclass registered under its config name
-via :func:`register_scheme` (``chor``, ``sparse``). The direct family,
-Subset-PIR and the ``as-*`` anonymity combinator of the reference package
-are not ported yet (ROADMAP.md Queue A): asking for them raises
-``NotImplementedError``.
+Each scheme is a frozen dataclass registered under its config name via
+:func:`register_scheme` (``chor``, ``sparse``, ``direct``, ``subset``). The
+``as-*`` names are the :class:`Anonymized` combinator instead: it wraps
+*any* registered scheme and rewrites only the accounting — the anonymity
+system changes who the adversary can attribute messages to, not the bits
+on the wire (paper §4.2/§4.4).
 
 Jagged multi-index batches (:class:`MultiQueries`, ``multi_*``) flatten
 per-request index lists onto the single-index wire, so every scheme's
@@ -48,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.core import accounting, chor, sparse
+from repro_torch.core import accounting, chor, direct, sparse, subset
 from repro_torch.db.store import RecordStore
 
 __all__ = [
@@ -73,17 +74,12 @@ __all__ = [
     "staged_retrieve_many",
     "ChorScheme",
     "SparseScheme",
-    "NOT_PORTED_SCHEMES",
+    "DirectPlan",
+    "DirectScheme",
+    "SubsetPlan",
+    "SubsetScheme",
+    "Anonymized",
 ]
-
-# names the reference package's registry knows and this package does not yet
-NOT_PORTED_SCHEMES = ("direct", "subset")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md Queue A"
-    )
 
 
 # --------------------------------------------------------------------------
@@ -94,7 +90,8 @@ class Queries:
     """One batch's per-server wire payload — everything the servers see.
 
     kind "mask": payload [d_eff, B, n] {0,1} uint8 request masks.
-    ``servers`` are the replica ids contacted (len d_eff ≤ scheme.d);
+    kind "index": payload [d, B, p/d] int32 record indices (the direct
+    family). ``servers`` are the replica ids contacted (len d_eff ≤ scheme.d);
     ``theta`` is set for the sparse family so the execution backend can
     pick the gather path. ``q_idx`` never crosses the wire — it stays on
     the client for :meth:`SchemeProtocol.reconstruct`.
@@ -174,6 +171,7 @@ class Answers:
     """Per-server responses paired with the queries that produced them.
 
     mask kind: responses [d_eff, B, W] packed partial XOR folds.
+    index kind: responses [d, B, p/d, W] packed records.
     """
 
     queries: Queries
@@ -251,11 +249,8 @@ def register_scheme(name: str) -> Callable[[type], type]:
 
 def get_scheme(name: str) -> type:
     """Look up a registered scheme class by name."""
-    key = name.lower()
-    if key in NOT_PORTED_SCHEMES:
-        raise _not_ported(f"scheme {key!r}")
     try:
-        return _REGISTRY[key]
+        return _REGISTRY[name.lower()]
     except KeyError:
         raise ValueError(
             f"unknown scheme {name!r}; registered: {registered_schemes()}"
@@ -263,7 +258,8 @@ def get_scheme(name: str) -> type:
 
 
 def registered_schemes() -> Tuple[str, ...]:
-    """Names of every registered base scheme."""
+    """Names of every registered base scheme (no ``as-`` variants — those
+    are the :class:`Anonymized` combinator, not registry entries)."""
     return tuple(sorted(_REGISTRY))
 
 
@@ -279,13 +275,19 @@ def scheme_param_names(name: str) -> Tuple[str, ...]:
 
 
 def build_scheme(name: str, d: int, d_a: int, **params: Any) -> "SchemeProtocol":
-    """Instantiate a staged scheme from its config name. Parameters the
-    scheme class does not declare are ignored (the back-compat facade
-    carries all of theta/p/t/u regardless of scheme); missing required
-    parameters raise ``ValueError`` from the class's own validation."""
+    """Instantiate a staged scheme from its config name.
+
+    ``as-<base>`` names build the base scheme and wrap it in
+    :class:`Anonymized` (requires ``u``). Parameters the scheme class does
+    not declare are ignored (the back-compat facade carries all of
+    theta/p/t/u regardless of scheme); missing required parameters raise
+    ``ValueError`` from the class's own validation."""
     name = name.lower()
     if name.startswith("as-"):
-        raise _not_ported(f"the anonymity combinator ({name!r})")
+        u = params.pop("u", None)
+        if not (u and u >= 1):
+            raise ValueError(f"{name} needs anonymity-set size u >= 1")
+        return Anonymized(build_scheme(name[3:], d, d_a, **params), u=int(u))
     cls = get_scheme(name)
     allowed = {f.name for f in dataclasses.fields(cls)}
     kw = {k: v for k, v in params.items() if k in allowed and v is not None}
@@ -455,8 +457,17 @@ def _validate_servers(d: int, d_a: int) -> None:
         raise ValueError(f"need 0 <= d_a < d, got d={d}, d_a={d_a}")
 
 
+def _signature(scheme: Any) -> Tuple:
+    params = tuple(
+        (f.name, getattr(scheme, f.name))
+        for f in dataclasses.fields(scheme)
+        if f.name not in ("d", "d_a")
+    )
+    return (scheme.name, scheme.d, scheme.d_a) + params
+
+
 class _MaskFamily:
-    """Shared server algebra of the XOR mask family (chor/sparse): servers
+    """Shared server algebra of the XOR mask family (chor/sparse/subset): servers
     XOR-fold the records their mask selects; the client XORs the
     per-server folds. The reference ``answer`` here is the plain
     single-store path; the production path is
@@ -473,12 +484,7 @@ class _MaskFamily:
 
     @property
     def signature(self) -> Tuple:
-        params = tuple(
-            (f.name, getattr(self, f.name))
-            for f in dataclasses.fields(self)
-            if f.name not in ("d", "d_a")
-        )
-        return (self.name, self.d, self.d_a) + params
+        return _signature(self)
 
 
 # --------------------------------------------------------------------------
@@ -552,3 +558,201 @@ class SparseScheme(_MaskFamily):
         return Queries(
             "mask", masks, tuple(range(self.d)), q_idx, theta=self.theta
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectPlan:
+    """The direct family's plan is just the generator: the p−1 dummy draws
+    depend on the queried index (they must avoid it), so there is no
+    query-independent half to bank — ``has_precompute`` is False and the
+    cross-batch cache never pools these. ``query`` draws from ``gen``."""
+
+    gen: torch.Generator
+    n: int
+    batch: int
+
+
+@register_scheme("direct")
+@dataclasses.dataclass(frozen=True)
+class DirectScheme:
+    """Direct Requests (paper §4.1): the real query hidden among p−1
+    distinct dummies, split evenly over the d databases.
+    ε = ln((d·(n−1)/(p−1) − d_a)/(d − d_a)) (Security Thm 1)."""
+
+    d: int
+    d_a: int
+    p: Optional[int] = None
+
+    has_precompute = False
+
+    def __post_init__(self):
+        _validate_servers(self.d, self.d_a)
+        if not self.p or self.p % self.d:
+            raise ValueError("direct needs p as a positive multiple of d")
+
+    def privacy(self, n: int) -> Tuple[float, float]:
+        return accounting.epsilon_direct(n, self.d, self.d_a, self.p), 0.0
+
+    def costs(self, n: int) -> Dict[str, float]:
+        return accounting.scheme_costs("direct", n=n, d=self.d, p=self.p)
+
+    def precompute(self, gen: torch.Generator, n: int, b: int) -> DirectPlan:
+        return DirectPlan(gen=gen, n=n, batch=b)
+
+    def query(self, plan, q_idx, *, pick_servers=None) -> Queries:
+        reqs = direct.gen_queries(plan.gen, plan.n, self.d, self.p, q_idx)
+        return Queries("index", reqs, tuple(range(self.d)), q_idx)
+
+    def answer(self, store: RecordStore, queries: Queries) -> Answers:
+        responses = torch.stack(
+            [direct.server_answer(store.packed, i) for i in queries.payload]
+        )
+        return Answers(queries=queries, responses=responses)
+
+    def reconstruct(self, answers: Answers) -> torch.Tensor:
+        return direct.select_response(
+            answers.queries.payload, answers.responses, answers.queries.q_idx
+        )
+
+    @property
+    def signature(self) -> Tuple:
+        return _signature(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsetPlan:
+    """Subset-PIR plan half: the uniform replica choice (``servers``, t
+    ids, drawn with the plan) plus the Chor randomness for the t
+    contacted servers."""
+
+    servers: torch.Tensor
+    chor_pre: chor.ChorPre
+
+    @property
+    def n(self) -> int:
+        return self.chor_pre.n
+
+    @property
+    def batch(self) -> int:
+        return self.chor_pre.batch
+
+
+@register_scheme("subset")
+@dataclasses.dataclass(frozen=True)
+class SubsetScheme(_MaskFamily):
+    """Subset-PIR (paper §5.1): Chor among a random t of the d servers.
+
+    ``query`` takes the straggler policy through ``pick_servers`` — the
+    serving pipeline passes its fastest-t-by-latency-EMA ranking; the
+    default is the paper's uniform random subset (Algorithm 5.1), drawn
+    with the plan.
+    """
+
+    d: int
+    d_a: int
+    t: Optional[int] = None
+
+    has_precompute = True
+
+    def __post_init__(self):
+        _validate_servers(self.d, self.d_a)
+        if not (self.t and 2 <= self.t <= self.d):
+            raise ValueError("subset needs 2 <= t <= d")
+
+    def privacy(self, n: int) -> Tuple[float, float]:
+        """(0, δ) with δ = Π_{i<t} (d_a−i)/(d−i) (Security Thm 5): the
+        probability every contacted server is corrupt. t ≤ d_a is legal by
+        design — priced by δ > 0 rather than rejected; for t > d_a the
+        product hits a zero factor and privacy is unconditional."""
+        return 0.0, accounting.delta_subset(self.d, self.d_a, self.t)
+
+    def costs(self, n: int) -> Dict[str, float]:
+        return accounting.scheme_costs("subset", n=n, d=self.d, t=self.t)
+
+    def precompute(self, gen: torch.Generator, n: int, b: int) -> SubsetPlan:
+        servers = subset.choose_servers(gen, self.d, self.t)
+        return SubsetPlan(
+            servers=servers,
+            chor_pre=chor.precompute_queries(gen, n, self.t, b),
+        )
+
+    def query(self, plan, q_idx, *, pick_servers=None) -> Queries:
+        if pick_servers is not None:
+            servers = tuple(int(s) for s in pick_servers(self.t))
+        else:
+            servers = tuple(int(s) for s in plan.servers.tolist())
+        if len(servers) != self.t:
+            raise ValueError(f"subset needs t={self.t} servers, got {servers}")
+        packed = chor.assemble_queries(plan.chor_pre, q_idx)
+        return Queries("mask", chor.query_masks(packed, plan.n), servers, q_idx)
+
+
+# --------------------------------------------------------------------------
+# The anonymity-system combinator
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Anonymized:
+    """Route any scheme through an anonymity set of u users (paper
+    §4.2/§4.4) — the combinator behind the ``as-*`` names.
+
+    The AS is a perfectly secret permutation over user messages
+    (:mod:`repro_torch.core.anonymity`): it changes *attribution*, not bits
+    on the wire, so every wire stage delegates to the base scheme verbatim
+    and only the accounting is rewritten — ε composes via the Composition
+    Lemma, ε₂ = ln(e^{2ε₁} + u − 1) − ln u (Security Thms 2 and 4 are this
+    lemma applied to Direct Requests and Sparse-PIR), and δ is untouched.
+    Any registered scheme — or another wrapper — is a legal base.
+    """
+
+    base: Any
+    u: int
+
+    def __post_init__(self):
+        if not isinstance(self.base, SchemeProtocol):
+            raise TypeError(
+                f"Anonymized needs a staged scheme, got {type(self.base).__name__}"
+            )
+        if self.u < 1:
+            raise ValueError(f"{self.name} needs anonymity-set size u >= 1")
+
+    # ------------------------------------------------------------- identity
+    @property
+    def name(self) -> str:
+        return f"as-{self.base.name}"
+
+    @property
+    def d(self) -> int:
+        return self.base.d
+
+    @property
+    def d_a(self) -> int:
+        return self.base.d_a
+
+    @property
+    def has_precompute(self) -> bool:
+        return self.base.has_precompute
+
+    @property
+    def signature(self) -> Tuple:
+        return ("as", self.u) + tuple(self.base.signature)
+
+    # ---------------------------------------------------- accounting (only)
+    def privacy(self, n: int) -> Tuple[float, float]:
+        eps, delta = self.base.privacy(n)
+        return accounting.compose_with_anonymity(eps, self.u), delta
+
+    def costs(self, n: int) -> Dict[str, float]:
+        return self.base.costs(n)
+
+    # ------------------------------------------- wire stages: pure delegation
+    def precompute(self, gen: torch.Generator, n: int, b: int) -> Plan:
+        return self.base.precompute(gen, n, b)
+
+    def query(self, plan, q_idx, *, pick_servers=None) -> Queries:
+        return self.base.query(plan, q_idx, pick_servers=pick_servers)
+
+    def answer(self, store: RecordStore, queries: Queries) -> Answers:
+        return self.base.answer(store, queries)
+
+    def reconstruct(self, answers: Answers) -> torch.Tensor:
+        return self.base.reconstruct(answers)

@@ -1,8 +1,8 @@
 """Back-compat scheme facade over the staged registry.
 
 A :class:`Scheme` is one frozen dataclass carrying a name string plus the
-union of all scheme parameters, so a config can switch ``chor ↔ sparse``
-with one string. It is a thin facade over :mod:`repro_torch.core.protocol`:
+union of all scheme parameters, so a config can switch ``chor ↔ sparse ↔
+direct ↔ subset ↔ as-*`` with one string. It is a thin facade over :mod:`repro_torch.core.protocol`:
 ``make_scheme`` validates through the registry classes and
 ``Scheme.retrieve`` delegates to the staged ``precompute → query → answer
 → reconstruct`` path (DESIGN.md §Scheme protocol). No method here
@@ -21,8 +21,7 @@ from repro_torch.db.store import RecordStore
 
 __all__ = ["Scheme", "make_scheme", "SCHEMES"]
 
-# the config-name surface of the reference package; the names this package
-# has not ported yet raise NotImplementedError from make_scheme
+# the config-name surface; any ``as-<registered base>`` builds too
 SCHEMES = ("chor", "sparse", "direct", "subset", "as-sparse", "as-direct")
 
 
@@ -32,8 +31,10 @@ class Scheme:
 
     d    : number of databases (replica groups)
     d_a  : assumed number of adversarial databases (accounting only)
-    theta: Bernoulli sparsity (sparse)
-    p, t, u: parameters of schemes not ported yet (carried, unused)
+    theta: Bernoulli sparsity (sparse, as-sparse)
+    p    : requests per query, a multiple of d (direct, as-direct)
+    t    : servers contacted (subset)
+    u    : anonymity-set size (as-*)
     """
 
     name: str
@@ -76,7 +77,7 @@ def make_scheme(name: str, d: int, d_a: int, **kw) -> Scheme:
     if name not in SCHEMES and not name.startswith("as-"):
         raise ValueError(f"unknown scheme {name!r}; choose from {SCHEMES}")
     sch = Scheme(name=name, d=d, d_a=d_a, **kw)
-    # build the staged object eagerly: the registry classes own validation
-    # (and the not-ported names raise here), so configs fail fast
+    # build the staged object eagerly: the registry classes own validation,
+    # so configs fail fast
     sch.staged
     return sch

@@ -9,16 +9,22 @@ models (repro_torch.models). Each module holds the wrapper that launches
 the CUDA kernel and the plain PyTorch version beside it; ops.py holds the
 standalone server paths, ref.py the plain versions under the reference's
 oracle names, and backend.py the execution-backend layer every PIR
-consumer outside this package goes through."""
+consumer outside this package goes through, with the autotune table
+of its measured decisions."""
 
 from repro_torch.kernels import backend, ops, ref
 from repro_torch.kernels.backend import (
+    AutotuneTable,
     ExecutionPlan,
     KernelPlanner,
+    autotune_table,
+    dump_autotune,
     get_backend,
+    load_autotune,
     register_backend,
     registered_backends,
     scatter_update,
+    shard_answer_fn,
 )
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fused import (
@@ -36,18 +42,23 @@ from repro_torch.kernels.parity_matmul import (
 from repro_torch.kernels.xor_fold import xor_fold
 
 __all__ = [
+    "AutotuneTable",
     "ExecutionPlan",
     "KernelPlanner",
+    "autotune_table",
     "backend",
+    "dump_autotune",
     "flash_attention_fwd",
     "fused_block_w",
     "fused_smem_budget",
     "get_backend",
     "indices_from_mask",
     "jagged_row_mask",
+    "load_autotune",
     "ops",
     "ref",
     "register_backend",
     "registered_backends",
     "scatter_update",
+    "shard_answer_fn",
 ]

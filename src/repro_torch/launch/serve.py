@@ -7,6 +7,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --ingest-every 32 --ingest-rows 64
 
+    # any scheme; the cross-batch cache; a measured autotune table kept
+    # across runs (loaded at start, tuned and written back at exit):
+    PYTHONPATH=src python -m repro_torch.launch.serve --scheme as-direct \
+        --p 100 --u 1000 --cache-entries 4096 --autotune-file at.json
+
 Runs on the CUDA card; ``--device cpu`` names the CPU explicitly. Prints
 per-batch latency (host clock, ending in a device synchronisation),
 throughput, the (ε, δ) price per query, and the engine's cumulative cost
@@ -29,7 +34,12 @@ from repro_torch.core.accounting import PrivacyBudget
 from repro_torch.data.pipeline import pir_delta_batch
 from repro_torch.db import VersionedStore, make_synthetic_store
 from repro_torch.kernels import registered_backends
-from repro_torch.serve import BatchScheduler, ServingPipeline, ShardedBackend
+from repro_torch.serve import (
+    BatchScheduler,
+    QueryCache,
+    ServingPipeline,
+    ShardedBackend,
+)
 
 
 def build_args() -> argparse.ArgumentParser:
@@ -50,6 +60,8 @@ def build_args() -> argparse.ArgumentParser:
     ap.add_argument("--frontend", choices=["sync"], default="sync",
                     help="sync: submit+flush loop (the async front is not "
                          "ported yet)")
+    ap.add_argument("--cache-entries", type=int, default=0,
+                    help="cross-batch cache slots; 0 disables the cache")
     ap.add_argument("--ingest-every", type=int, default=0,
                     help="serve a live VersionedStore and append one delta "
                          "every N queries served; 0 = frozen store")
@@ -59,6 +71,10 @@ def build_args() -> argparse.ArgumentParser:
                     choices=sorted(registered_backends()),
                     help="execution backend (repro_torch.kernels.backend "
                          "registry)")
+    ap.add_argument("--autotune-file", default="",
+                    help="JSON autotune table: loaded at startup when it "
+                         "exists (entries measured on another device are "
+                         "dropped), tuned and written back at exit")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card (an error "
                          "when there is none)")
@@ -81,6 +97,10 @@ def make_engine(args) -> ServingPipeline:
     store = make_synthetic_store(
         args.n, args.record_bytes, seed=0, device=device
     )
+    cache = (
+        QueryCache(scheme, store.n, max_entries=args.cache_entries)
+        if args.cache_entries > 0 else None
+    )
     # a live store serves through its frozen head; the backend is handed
     # the base snapshot
     served = (
@@ -92,7 +112,11 @@ def make_engine(args) -> ServingPipeline:
         scheduler=BatchScheduler(
             max_batch=args.batch, max_wait_s=args.max_wait_ms / 1e3
         ),
-        backend=ShardedBackend(store, backend=args.backend, device=device),
+        cache=cache,
+        backend=ShardedBackend(
+            store, backend=args.backend,
+            autotune_file=args.autotune_file or None, device=device,
+        ),
         default_budget=lambda: PrivacyBudget(
             epsilon_limit=args.eps_budget, delta_limit=1.0
         ),
@@ -139,6 +163,9 @@ def run_sync(args, engine: ServingPipeline) -> None:
         print(f"batch of {nq:4d} served in {dt*1e3:7.1f} ms "
               f"({nq/dt:8.0f} qps), verified exact")
     wall = time.perf_counter() - t_start
+    if engine.cache is not None:
+        print(f"cache: {engine.metrics['cache_hits']} hits, "
+              f"{engine.cache.metrics}")
     if args.ingest_every:
         print(f"live store: v{engine.store_version}, n={engine.store.n} "
               f"({engine.metrics['records_ingested']} records ingested "
@@ -160,6 +187,16 @@ def main(argv=None) -> None:
     print(f"scheduler target batch: {engine.scheduler.target_batch}; "
           f"backend={engine.backend.backend_name} "
           f"paths: {engine.backend.path_counts}")
+    if args.autotune_file:
+        if engine.backend.autotune_dropped:
+            print(f"autotune load dropped {engine.backend.autotune_dropped} "
+                  f"entries measured on another device or store shape")
+        # finish the search for any still-cold cells so the dumped table
+        # carries measured winners, not priors
+        tuned = engine.backend.tune_pending()
+        print(f"autotune table -> {engine.backend.save_autotune()} "
+              f"({len(engine.backend.planner.table)} entries, "
+              f"{tuned} tuned at exit)")
 
 
 if __name__ == "__main__":

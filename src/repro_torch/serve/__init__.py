@@ -5,9 +5,11 @@ are, ``SchemeRouter`` drives the configured scheme's staged protocol
 (DESIGN.md §Scheme protocol) to turn a batch into per-server payloads,
 ``ShardedBackend`` runs the answer stage with the CUDA kernels on one
 device. ``ServingPipeline`` composes the three and enforces per-client
-(ε, δ) budgets; ``PIRServingEngine`` is the back-compat facade.
+(ε, δ) budgets; ``QueryCache`` memoizes answers and banks precomputed
+randomness across batches; ``PIRServingEngine`` is the back-compat facade.
 """
 
+from repro_torch.serve.cache import CacheEntry, QueryCache, scheme_signature
 from repro_torch.serve.engine import PIRServingEngine, PlannedBatch, ServingPipeline
 from repro_torch.serve.router import RoutedBatch, SchemeRouter
 from repro_torch.serve.scheduler import BatchScheduler, Request, bucket_size
@@ -15,8 +17,10 @@ from repro_torch.serve.sharded import ServerStats, ShardedBackend
 
 __all__ = [
     "BatchScheduler",
+    "CacheEntry",
     "PIRServingEngine",
     "PlannedBatch",
+    "QueryCache",
     "Request",
     "RoutedBatch",
     "SchemeRouter",
@@ -24,4 +28,5 @@ __all__ = [
     "ServingPipeline",
     "ShardedBackend",
     "bucket_size",
+    "scheme_signature",
 ]

@@ -7,8 +7,10 @@ payloads). It is a thin caller of the staged
 protocol): it holds **no per-scheme branching** — which replicas to
 contact, what each receives, and how responses reconstruct are all the
 scheme object's stages, dispatched through the registry. The straggler
-policy (``pick_servers``) is forwarded to ``query()``; no scheme ported so
-far consumes it.
+policy (``pick_servers(t) -> Sequence[int]``) is forwarded to ``query()``:
+Subset-PIR takes its replica choice from it (the serving pipeline passes
+its fastest-t-by-latency-EMA ranking); the default there is the paper's
+uniform random subset, and schemes that contact all d replicas ignore it.
 
 The router also exposes the protocol's planning split:
 :meth:`SchemeRouter.precompute` generates the query-independent randomness
@@ -63,8 +65,10 @@ class SchemeRouter:
         """Pre-generate the query-independent randomness of a [b]-batch.
 
         Returns the scheme's Plan for ``plan(..., pre=...)``, or None
-        where planning has no query-independent half. The result is
-        **single-use**: feed it to exactly one plan() call.
+        where planning has no query-independent half (the direct family's
+        dummy draws depend on the queried index — ``has_precompute`` is
+        False). The result is **single-use**: feed it to exactly one
+        plan() call.
         """
         if not self.scheme.has_precompute:
             return None

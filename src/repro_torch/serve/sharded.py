@@ -18,8 +18,19 @@ kernel choice of its own** and imports no kernel module.
 
 Only the single-device half of the reference package's backend is ported:
 the whole store lies on one device and each logical replica's answer is
-one kernel launch over it. Mesh residency and the direct family's index
-path are not ported yet (ROADMAP.md Queue A).
+one kernel launch over it (the ``mask`` kind), or one ``index_select`` of
+the requested rows (the ``index`` kind, the direct family: the reference
+gathers with ``jnp.take`` outside any kernel too). Mesh residency is not
+ported yet (ROADMAP.md Queue A).
+
+``autotune=`` hands the planner an
+:class:`~repro_torch.kernels.backend.AutotuneTable` (default: the process
+table of the store's device); ``autotune_file=`` merges a dumped table at
+construction (a missing file is a cold start; entries measured on another
+device — the JAX package's included — or for another store shape are
+dropped and counted in :attr:`ShardedBackend.autotune_dropped`), and
+:meth:`ShardedBackend.save_autotune` writes it back. The search itself
+runs in :meth:`ShardedBackend.autotune_step` / :meth:`tune_pending`.
 
 A live store moves the backend with :meth:`ShardedBackend.swap_store`
 (the planner keeps its plans on a same-shape swap), and a batch planned
@@ -44,7 +55,12 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device, synchronize
 from repro_torch.core.protocol import MultiQueries, Queries
 from repro_torch.db.store import RecordStore
-from repro_torch.kernels.backend import ExecutionPlan, KernelPlanner
+from repro_torch.kernels.backend import (
+    AutotuneTable,
+    ExecutionPlan,
+    KernelPlanner,
+    dump_autotune,
+)
 
 __all__ = ["ServerStats", "ShardedBackend"]
 
@@ -74,6 +90,8 @@ class ShardedBackend:
         *,
         simulate_latency: Optional[Callable[[int], float]] = None,
         backend: str = "auto",
+        autotune: Optional[AutotuneTable] = None,
+        autotune_file: Optional[str] = None,
         parity_min_batch: Optional[int] = None,
         smem_budget_bytes: Optional[int] = None,
         device: DeviceLike = None,
@@ -88,9 +106,22 @@ class ShardedBackend:
         self.planner = KernelPlanner(
             store,
             backend=backend,
+            table=autotune,
             parity_min_batch=parity_min_batch,
             smem_budget_bytes=smem_budget_bytes,
         )
+        self.autotune_file = autotune_file
+        #: autotune entries refused at load: measured on another device, or
+        #: for another store shape (AutotuneTable.update)
+        self.autotune_dropped = 0
+        if autotune_file is not None:
+            try:
+                self.autotune_dropped = self.planner.table.update(
+                    AutotuneTable.load(autotune_file, device=self.device),
+                    store_shape=(store.n, store.words),
+                )
+            except FileNotFoundError:
+                pass  # cold start; save_autotune() creates it
         self.stats: Dict[int, ServerStats] = {}
         self._sim = simulate_latency
         # the live-store version the backend was last swapped to, and the
@@ -115,6 +146,27 @@ class ShardedBackend:
     def backend_name(self) -> str:
         """The registered execution backend this instance plans with."""
         return self.planner.backend_name
+
+    def save_autotune(self, path: Optional[str] = None) -> str:
+        """Dump the planner's autotune table as JSON (default: the
+        ``autotune_file`` this backend was constructed with)."""
+        path = path or self.autotune_file
+        if path is None:
+            raise ValueError("no autotune_file configured and no path given")
+        dump_autotune(path, self.planner.table)
+        return path
+
+    # -------------------------------------------------------------- autotune
+    def autotune_step(self, max_cells: int = 1) -> int:
+        """Run the planner's autotune search for up to ``max_cells``
+        pending cells (an idle-time job); returns cells tuned. Requests
+        never call this — they plan from the table or the prior."""
+        return self.planner.tune_step(max_cells)
+
+    def tune_pending(self) -> int:
+        """Drain the planner's pending-cell queue (benchmarks and shutdown
+        dumps); returns cells tuned."""
+        return self.planner.tune_pending()
 
     # ------------------------------------------------------------ stragglers
     def ensure_replicas(self, d: int) -> None:
@@ -247,6 +299,16 @@ class ShardedBackend:
             ), plan
         return plan(masks_s), plan
 
+    def _answer_index_server(
+        self, reqs_s: torch.Tensor, store: Optional[RecordStore] = None
+    ) -> torch.Tensor:
+        """One server's [B, k] index requests -> [B, k, W] records of the
+        pinned snapshot (None: the backend's current store)."""
+        self.path_counts["direct"] += 1
+        pinned = store if store is not None else self.store
+        return pinned.packed.index_select(0, reqs_s.reshape(-1).long()
+                                          ).reshape(*reqs_s.shape, -1)
+
     def answer_batch(
         self,
         routed: Queries,
@@ -262,23 +324,23 @@ class ShardedBackend:
         when an ingest swapped the backend's store between this batch's
         plan and its execution, the answer still comes from the pinned
         snapshot, bit for bit. The latency EMA is fed for **every**
-        scheme's servers; each sample ends in a device synchronisation
-        (d of them per batch).
+        scheme's servers (only Subset-PIR consumes the ranking); each
+        sample ends in a device synchronisation (d of them per batch).
 
-        Returns stacked responses [d_eff, B, W], ordered like
-        ``routed.servers``.
+        Returns stacked responses: [d_eff, B, W] (mask) or [d_eff, B, k, W]
+        (index), ordered like ``routed.servers``.
         """
-        if routed.kind != "mask":
-            raise NotImplementedError(
-                f"wire kind {routed.kind!r} (the direct family) is not "
-                "ported yet; see ROADMAP.md Queue A"
-            )
+        if routed.kind not in ("mask", "index"):
+            raise ValueError(f"unknown wire kind {routed.kind!r}")
         responses = []
         for pos, sid in enumerate(routed.servers):
             t0 = time.perf_counter()
-            r, plan = self._answer_mask_server(
-                routed.payload[pos], routed, plan, scheme, store
-            )
+            if routed.kind == "mask":
+                r, plan = self._answer_mask_server(
+                    routed.payload[pos], routed, plan, scheme, store
+                )
+            else:
+                r = self._answer_index_server(routed.payload[pos], store)
             synchronize(self.device)
             self.observe_latency(
                 sid,

@@ -24,7 +24,7 @@ from repro_torch.core import make_scheme
 from repro_torch.db import make_synthetic_store
 from repro_torch.kernels import KernelPlanner, get_backend, ops, registered_backends
 from repro_torch.kernels import backend as backend_mod
-from repro_torch.kernels.backend import ExecutionPlan, _path_answer_fn
+from repro_torch.kernels.backend import AutotuneTable, ExecutionPlan, _path_answer_fn
 
 from _torch_parity import seeded_mask, words_t2n
 
@@ -162,10 +162,21 @@ def test_planes_are_built_lazily_and_once():
 
 
 def test_direct_family_is_not_ported_yet():
+    """The name predates the port of the direct family; the ``index`` wire
+    kind now plans the reference's decision-only ``direct`` path."""
     store = make_synthetic_store(16, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KernelPlanner(store).plan(
-            types.SimpleNamespace(kind="index", theta=None), 4)
+    wire = types.SimpleNamespace(kind="index", theta=None)
+    sch = make_scheme("direct", d=2, d_a=1, p=4).staged
+    plan = KernelPlanner(store, table=AutotuneTable(device="cpu")).plan(
+        wire, 4, scheme=sch)
+    rplan = RefPlanner(ref_make_store(16, 4, seed=0), table=RefTable()).plan(
+        wire, 4, None, scheme=ref_make_scheme("direct", d=2, d_a=1, p=4).staged)
+    assert (plan.path, plan.source, plan.m_budget, plan.blocks) == (
+        rplan.path, rplan.source, rplan.m_budget, rplan.blocks) == (
+        "direct", "only", None, ())
+    assert plan.run is None and plan.family == "direct"
+    with pytest.raises(RuntimeError, match="decision only"):
+        plan(torch.zeros((4, 2), dtype=torch.int32))
 
 
 BRANCHES = [

@@ -5,6 +5,8 @@ without them the ``cuda_device`` fixture skips. Run on a GPU host with
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1160,3 +1162,102 @@ def test_reduced_models_on_the_card_match_the_cpu(cuda_device):
     assert xor_fold.launches == folds + 4
     assert flash_attention_fwd.launches == launches + rcfg.n_blocks
     _same(private, plain)
+
+
+# ------------------------------- the rest of the schemes, autotune, cache
+@pytest.mark.parametrize("name,kw", [("direct", dict(p=8)),
+                                     ("subset", dict(t=3)),
+                                     ("as-sparse", dict(theta=0.25, u=16))])
+def test_every_scheme_on_the_card_equals_the_cpu(cuda_device, name, kw):
+    """One wire payload, answered on the card and on the CPU: the same
+    per-server answers and records, bit for bit; the card's own pipeline
+    serves the records exactly (the mask family through the kernels, the
+    direct family through its row gather)."""
+    from repro_torch.core import make_scheme
+    from repro_torch.serve import ServingPipeline, ShardedBackend
+
+    sch = make_scheme(name, d=4, d_a=2, **kw)
+    cpu = make_synthetic_store(512, 24, seed=3, device="cpu")
+    card = make_synthetic_store(512, 24, seed=3, device=cuda_device)
+    q = torch.tensor([0, 511, 77, 300], dtype=torch.int32)
+    routed = sch.staged.query(sch.staged.precompute(
+        torch.Generator().manual_seed(2), 512, 4), q)
+    on_card = dataclasses.replace(
+        routed, payload=routed.payload.to(cuda_device),
+        q_idx=routed.q_idx.to(cuda_device))
+    got = ShardedBackend(card, device=cuda_device).answer_batch(
+        on_card, scheme=sch.staged)
+    want = ShardedBackend(cpu, device="cpu").answer_batch(
+        routed, scheme=sch.staged)
+    _same(got.cpu(), want)
+    _same(sch.staged.reconstruct(
+        sch.staged.answer(card, on_card)).cpu(), cpu.packed[q.long()])
+    kernels = (xor_fold, gather_xor, fused_gather_fold)
+    before = sum(f.launches for f in kernels)
+    pipe = ServingPipeline(card, sch, seed=4)
+    for c, i in enumerate((0, 5, 511)):
+        assert pipe.submit(f"c{c}", i)
+    out = pipe.flush()
+    for c, i in enumerate((0, 5, 511)):
+        assert (out[f"c{c}"] == cpu.record_bytes(i)).all()
+    # one answer kernel a contacted server; none for the direct gather
+    assert sum(f.launches for f in kernels) - before == {
+        "direct": 0, "subset": 3, "as-sparse": 4}[name]
+
+
+def test_an_autotuned_plan_on_the_card_answers_like_the_plain_version(
+        cuda_device):
+    """The measured search on the card (real timer, each sample ending in
+    a synchronisation) races kernel candidates only under ``auto``; the
+    fastest wins and answers bit for bit like the plain fold."""
+    import types
+
+    from repro_torch._device import device_fingerprint
+    from repro_torch.core import make_scheme
+    from repro_torch.kernels.backend import (
+        AutotuneTable,
+        KernelPlanner,
+        PlanCandidate,
+    )
+
+    store = make_synthetic_store(4096, 64, seed=5, device=cuda_device)
+    table = AutotuneTable(cuda_device)
+    planner = KernelPlanner(store, table=table)
+    rng = np.random.default_rng(6)
+    for name, kw, theta, bucket in (("sparse", dict(theta=0.25), 0.25, 8),
+                                    ("chor", {}, None, 32)):
+        sch = make_scheme(name, d=4, d_a=2, **kw).staged
+        wire = types.SimpleNamespace(kind="mask", theta=theta)
+        assert planner.plan(wire, bucket, scheme=sch).source == "model"
+        assert planner.tune_pending() == 1
+        plan = planner.plan(wire, bucket, scheme=sch)
+        assert plan.source == "measured"
+        key = planner._table_key(name, bucket, "cuda", theta)
+        entry = table.get(key)
+        assert entry["device"] == device_fingerprint(cuda_device)
+        us = entry["us"]
+        assert len(us) > 1 and all(
+            k.split("+")[0].endswith("/cuda") for k in us)
+        winner = PlanCandidate(plan.path, plan.impl, plan.blocks).label
+        assert plan.impl == "cuda" and min(us, key=us.get) == winner
+        mask = torch.from_numpy(
+            (rng.random((bucket, store.n)) < (theta or 0.5)).astype(np.uint8)
+        ).to(cuda_device)
+        _same(plan(mask), xor_fold_plain(store.packed, mask))
+
+
+def test_scatter_update_launches_the_kernel_on_the_card(cuda_device):
+    """Under ``auto`` the write path launches the scatter kernel once per
+    update, never its plain version, and measures nothing."""
+    from repro_torch.kernels import scatter_update
+    from repro_torch.kernels.backend import autotune_table
+
+    db, rows, vals = _scatter_case(5000, 384, 700, torch.int32, cuda_device,
+                                   1, True)
+    entries = len(autotune_table(cuda_device))
+    launches = scatter_rows.launches
+    for m in (700, 9):
+        got = scatter_update(db, rows[:m], vals[:m])
+        _same(got, scatter_rows_plain(db, rows[:m], vals[:m]))
+    assert scatter_rows.launches - launches == 2
+    assert len(autotune_table(cuda_device)) == entries

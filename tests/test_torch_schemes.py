@@ -256,9 +256,11 @@ def test_privacy_budget_arithmetic_equals_reference():
 
 # --------------------------------------------------------------- registry
 def test_registry_surface():
-    assert registered_schemes() == ("chor", "sparse")
+    assert registered_schemes() == ("chor", "direct", "sparse", "subset")
     assert scheme_param_names("sparse") == ("theta",)
     assert scheme_param_names("chor") == ()
+    assert scheme_param_names("direct") == ("p",)
+    assert scheme_param_names("subset") == ("t",)
     assert isinstance(build_scheme("chor", d=3, d_a=1, theta=0.2), ChorScheme)
     assert isinstance(
         as_protocol(make_scheme("sparse", d=3, d_a=1, theta=0.2)), SparseScheme)
@@ -284,8 +286,17 @@ def test_scheme_validation_raises_value_error(bad):
     ("as-sparse", dict(theta=0.25, u=16)), ("as-direct", dict(p=8, u=16)),
 ])
 def test_schemes_not_ported_yet_raise(name, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_scheme(name, d=4, d_a=2, **kw)
+    """The name predates the port of these schemes: each now builds
+    through the facade and retrieves its records exactly, with the
+    reference's (ε, δ)."""
+    sch = make_scheme(name, d=4, d_a=2, **kw)
+    store = make_synthetic_store(96, 20, seed=5, device="cpu")
+    q = torch.tensor([0, 17, 95, 40], dtype=torch.int32)
+    out = staged_retrieve(sch.staged, _gen(11), store, q)
+    assert torch.equal(out, store.packed[q.long()])
+    rsch = ref_make_scheme(name, d=4, d_a=2, **kw)
+    assert sch.privacy(store.n) == rsch.privacy(store.n)
+    assert sch.costs(store.n) == rsch.costs(store.n)
 
 
 def test_convert_round_trips():
@@ -302,6 +313,14 @@ def test_convert_round_trips():
     assert q2.servers == q.servers and torch.equal(q2.q_idx, q.q_idx)
     with pytest.raises(ValueError):
         convert.store_from_numpy(packed, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        convert.queries_from_numpy("index", fields["payload"], (0,), [0],
+    # the index wire kind (the direct family) round-trips too
+    td = build_scheme("direct", d=2, d_a=1, p=4)
+    qd = td.query(td.precompute(_gen(1), 20, 2),
+                  torch.tensor([3, 19], dtype=torch.int32))
+    back = convert.queries_from_numpy(device="cpu",
+                                      **convert.queries_to_numpy(qd))
+    assert back.kind == "index" and back.payload.dtype == torch.int32
+    assert torch.equal(back.payload, qd.payload) and back.servers == (0, 1)
+    with pytest.raises(ValueError, match="wire kind"):
+        convert.queries_from_numpy("nope", fields["payload"], (0,), [0],
                                    device="cpu")

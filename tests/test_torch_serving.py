@@ -170,12 +170,21 @@ def test_pir_ct_config_equals_reference_and_builds_pipeline():
 
 
 def test_cache_entries_are_ignored_with_one_logged_line(caplog):
+    """The name predates the port of the cache: ``cache_entries`` now
+    attaches a QueryCache of that size, as the reference's config does,
+    and nothing is logged about it."""
     cfg = pir_ct.reduced()
     assert cfg.cache_entries > 0
     with caplog.at_level("INFO", logger="repro_torch.configs.pir_ct"):
-        pir_ct.make_serving_pipeline(cfg, device="cpu")
-    lines = [r for r in caplog.records if "cache_entries" in r.getMessage()]
-    assert len(lines) == 1 and "ROADMAP" in lines[0].getMessage()
+        pipe = pir_ct.make_serving_pipeline(cfg, device="cpu")
+    assert not [r for r in caplog.records
+                if "cache_entries" in r.getMessage()]
+    rpipe = ref_pir_ct.make_serving_pipeline(cfg_ref := ref_pir_ct.reduced())
+    assert pipe.cache.max_entries == rpipe.cache.max_entries == (
+        cfg_ref.cache_entries)
+    assert pipe.cache.signature == rpipe.cache.signature
+    assert pir_ct.make_serving_pipeline(
+        dataclasses.replace(cfg, cache_entries=0), device="cpu").cache is None
 
 
 # ------------------------------------------------------------- (c) scheduler
@@ -407,16 +416,34 @@ def test_same_seed_same_wire_bits():
 
 # ------------------------------------------------------ (e) deferred features
 def test_deferred_features_raise():
+    """The name predates the port of the cache and the ``index`` kind:
+    the pipeline now takes a cache (refusing one signed for another
+    scheme, as the reference does), and the backend answers the
+    reference's own direct payload with the reference's records."""
+    from repro_torch.serve import QueryCache
+
     store = _store(64, 8)
     sch = make_scheme("chor", d=2, d_a=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingPipeline(store, sch, cache=object(), device="cpu")
-    pipe = _pipe(store, sch)
-    routed = pipe.router.plan(torch.Generator().manual_seed(0), 64,
-                              torch.zeros(1, dtype=torch.int32))
-    routed.kind = "index"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.backend.answer_batch(routed)
+    with pytest.raises(ValueError, match="cache built for"):
+        ServingPipeline(store, sch, device="cpu",
+                        cache=QueryCache(make_scheme("chor", d=3, d_a=1), 64))
+    assert _pipe(store, sch, cache=QueryCache(sch, 64)).cache is not None
+    rstore = ref_make_store(64, 8, seed=0)
+    rsch = ref_make_scheme("direct", d=2, d_a=1, p=8).staged
+    rq = RefRouter(rsch).plan(jax.random.key(0), 64, jnp.asarray([5, 63]))
+    want = np.asarray(RefBackend(rstore).answer_batch(rq, scheme=rsch))
+    dsch = make_scheme("direct", d=2, d_a=1, p=8)
+    pipe = _pipe(store, dsch)
+    routed = convert.queries_from_numpy(
+        rq.kind, np.asarray(rq.payload), rq.servers, np.asarray(rq.q_idx),
+        device="cpu")
+    got = pipe.backend.answer_batch(routed, scheme=pipe.staged)
+    assert got.shape == (2, 2, 4, store.words)
+    np.testing.assert_array_equal(words_t2n(got), want)
+    assert pipe.backend.path_counts["direct"] == 2
+    np.testing.assert_array_equal(
+        words_t2n(pipe.router.finalize(routed, got)),
+        np.asarray(rstore.packed)[[5, 63]])
 
 
 def test_device_rule_no_card_no_cpu_carry_on():
@@ -446,8 +473,12 @@ def test_launch_serve_runs_on_the_named_device(capsys):
                 "--queries", "12", "--batch", "8", "--d", "3", "--da", "1"])
     text = capsys.readouterr().out
     assert "verified exact" in text and "'sparse': 6" in text
-    with pytest.raises(NotImplementedError):
-        serve.main(["--device", "cpu", "--scheme", "direct"])
+    # the direct family, once a "not ported" refusal, serves exactly
+    serve.main(["--device", "cpu", "--scheme", "direct", "--n", "256",
+                "--record-bytes", "16", "--queries", "12", "--batch", "8",
+                "--d", "3", "--da", "1", "--p", "6"])
+    text = capsys.readouterr().out
+    assert text.count("verified exact") == 2 and "'direct': 6" in text
 
 
 # ------------------------------------------------------------ import hygiene
