@@ -1274,6 +1274,525 @@ def autotune_ct(pir_ct, cfg, store, dev, rng, smi):
     return line
 
 
+def _union(intervals):
+    """Sorted, merged [start, end) intervals."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _measure(intervals) -> float:
+    return sum(e - s for s, e in intervals)
+
+
+def _intersect(a, b) -> float:
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if hi > lo:
+            total += hi - lo
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_overlap(fn, groups):
+    """One run of ``fn`` under torch.profiler, split by CUDA stream: each
+    stream's device time by group (a group takes the events whose name
+    holds one of its substrings; "other" the rest), the busy share (the
+    union of every device interval over the host wall time), the time two
+    or more streams ran at once, and, for each pair of groups, the time a
+    group's events ran beside the other's. Measurement only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    by_stream, by_group = {}, {g: [] for g in list(groups) + ["other"]}
+    # the raw trace, not prof.events(): the kernels of this run are
+    # launched from the front's threads, not from this one, and the raw
+    # events carry each one's stream
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        start = e.start_ns() / 1e3
+        iv = (start, start + e.duration_ns() / 1e3)
+        name = e.name()
+        group = next((g for g, keys in groups.items()
+                      if any(k in name for k in keys)), "other")
+        by_group[group].append(iv)
+        stream = str(e.device_resource_id())
+        by_stream.setdefault(stream, {g: [] for g in by_group})[group].append(
+            iv)
+    merged = {s: _union([iv for ivs in gs.values() for iv in ivs])
+              for s, gs in by_stream.items()}
+    busy = _union([iv for ivs in merged.values() for iv in ivs])
+    # time with two or more streams active: sum of each stream's busy time
+    # less the union's
+    concurrent = sum(_measure(m) for m in merged.values()) - _measure(busy)
+    groups_merged = {g: _union(ivs) for g, ivs in by_group.items()}
+    names = sorted(groups_merged)
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": _measure(busy) / 1e3,
+        "busy_share": _measure(busy) / wall_us if wall_us > 0 else None,
+        "streams": {s: {g: _measure(_union(ivs)) / 1e3
+                        for g, ivs in gs.items() if ivs}
+                    for s, gs in by_stream.items()},
+        "two_streams_at_once_ms": concurrent / 1e3,
+        "group_overlap_ms": {
+            f"{a}|{b}": _intersect(groups_merged[a], groups_merged[b]) / 1e3
+            for i, a in enumerate(names) for b in names[i + 1:]
+            if groups_merged[a] and groups_merged[b]},
+    }
+
+
+SPARSE_GROUPS = {"sort": ["sort", "Sort"], "rand": ["uniform", "random",
+                                                    "Random", "philox"],
+                 "indices_from_mask": ["ifm_"],
+                 "gather_xor": ["gather_xor_kernel", "gather_prep"],
+                 "copy": ["Memcpy", "memcpy", "Memset", "memset"]}
+
+
+def _submit_from_threads(fe, picks, submitters, prefix):
+    """Submit ``picks`` from ``submitters`` threads, each its own share in
+    order; returns the futures in the order of ``picks``."""
+    import threading
+
+    futs = [None] * len(picks)
+
+    def feed(s):
+        for j in range(s, len(picks), submitters):
+            futs[j] = fe.submit(f"{prefix}{s}-{j % 64}", int(picks[j]))
+
+    threads = [threading.Thread(target=feed, args=(s,))
+               for s in range(submitters)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600.0)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a submitter thread did not finish")
+    return futs
+
+
+def _check_futures(label, futs, picks, store_):
+    for f, i in zip(futs, picks):
+        if not np.array_equal(f.result(timeout=60.0),
+                              store_.record_bytes(int(i))):
+            raise AssertionError(f"{label}: wrong record for index {int(i)}")
+
+
+def serve_async(label, pir_ct, cfg, store_, rng, wrappers, expect,
+                lookups, read_counts, reset_counts, submitters=4,
+                double_buffer=True, trace=False):
+    """``lookups`` lookups from ``submitters`` threads through
+    ``make_async_frontend`` on the card (no cache, so no banked plans),
+    double-buffered or not; every future held against its record, and each
+    kernel of ``expect`` launched ``expect[k]`` times a batch. The pipeline
+    is warmed up first through its own entry points (one flush), and the
+    front's idle-slot autotune is off, so that its batches plan from the
+    prior as the synchronous phases' do. The counts are set to 0 after
+    that warm-up, so that they hold the front's batches only. With
+    ``trace``, a few more batches run under torch.profiler after the
+    counts are read (measurement only). Returns the phase's line and
+    ``read_counts()`` taken at the end of the run, before any traced
+    batch."""
+    fe = pir_ct.make_async_frontend(cfg, store=store_, seed=6)
+    fe.double_buffer = double_buffer
+    fe.autotune = False
+    pipe = fe.pipeline
+    for c, i in enumerate(rng.integers(0, store_.n, size=cfg.query_batch)):
+        pipe.submit(f"warm-{c}", int(i))
+    pipe.flush()
+    reset_counts()
+    picks = rng.integers(0, store_.n, size=lookups)
+    batches0 = pipe.metrics["batches"]
+    before = {k: f_.launches for k, f_ in wrappers.items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with fe:
+        t = time.perf_counter()
+        futs = _submit_from_threads(fe, picks, submitters, "s")
+        if not fe.drain(timeout=600.0):
+            raise AssertionError(f"{label}: the front did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: f_.launches - before[k] for k, f_ in wrappers.items()
+                    if f_.launches != before[k]}
+        batches = pipe.metrics["batches"] - batches0
+        _check_futures(label, futs, picks, store_)
+        m = fe.metrics
+        if m["failed"] or m["served"] != lookups:
+            raise AssertionError(f"{label}: {m}")
+        for k, per in expect.items():
+            if launches.get(k, 0) != per * batches:
+                raise AssertionError(
+                    f"{label}: {k} launched {launches.get(k, 0)} times in "
+                    f"{batches} batches, expected {per} a batch")
+        line = {
+            "phase": label, "scheme": cfg.scheme, "n": store_.n,
+            "record_bytes": cfg.record_bytes, "d": cfg.d,
+            "bucket": cfg.query_batch, "submitters": submitters,
+            "double_buffer": double_buffer, "lookups": lookups,
+            "batches": batches, "wall_s": wall,
+            "flushes_per_s": batches / wall, "lookups_per_s": lookups / wall,
+            "launches": launches,
+            "launches_a_batch": {k: v / batches for k, v in launches.items()},
+            "memory_resident_at_start": resident,
+            "max_memory_allocated": peak,
+            "side_stream": None if fe._side is None else str(fe._side),
+            "frontend": {k: m[k] for k in ("accepted", "served", "failed",
+                                           "shed", "autotuned",
+                                           "prefilled")},
+        }
+        counts = read_counts()
+        if trace:
+            more = rng.integers(0, store_.n, size=4 * cfg.query_batch)
+
+            def traced():
+                f2 = _submit_from_threads(fe, more, submitters, "t")
+                if not fe.drain(timeout=600.0):
+                    raise AssertionError(f"{label}: the front did not drain")
+                _check_futures(label, f2, more, store_)
+
+            line["trace"] = stream_overlap(traced, SPARSE_GROUPS)
+    return line, counts
+
+
+def serve_async_reduced(pir_ct, red, small, rng, wrappers):
+    """The front on the reduced store: single lookups (the fused gather)
+    then multi-index requests (the fused multi gather), each against its
+    records."""
+    fe = pir_ct.make_async_frontend(red, store=small, seed=8)
+    pipe = fe.pipeline
+    with fe:
+        picks = rng.integers(0, small.n, size=64)
+        futs = [fe.submit(f"r{j % 16}", int(i)) for j, i in enumerate(picks)]
+        if not fe.drain(timeout=300.0):
+            raise AssertionError("serve_async_reduced: no drain")
+        _check_futures("serve_async_reduced", futs, picks, small)
+        lists = [list(rng.integers(0, small.n, size=k)) for k in (1, 4, 2, 3)]
+        many = [fe.submit_many(f"m{j}", lst) for j, lst in enumerate(lists)]
+        if not fe.drain(timeout=300.0):
+            raise AssertionError("serve_async_reduced: no drain")
+        for f, lst in zip(many, lists):
+            want = np.stack([small.record_bytes(int(i)) for i in lst])
+            if not np.array_equal(f.result(timeout=60.0), want):
+                raise AssertionError("serve_async_reduced: wrong records")
+        m = fe.metrics
+    emit({"phase": "serve_async_reduced", "n": small.n, "d": red.d,
+          "served": m["served"], "failed": m["failed"],
+          "batches": pipe.metrics["batches"],
+          "path_counts": dict(pipe.backend.path_counts),
+          "launches": {k: f_.launches for k, f_ in wrappers.items()
+                       if f_.launches}})
+
+
+def serve_async_live(pir_ct, cfg, base, rng, pir_delta_batch, VersionedStore,
+                     scatter_rows):
+    """The front over a live CT store: deltas through ``frontend.ingest``
+    (the 10 000-row update burst, then an append of 64) beside lookups of
+    the updated rows, which answer each the snapshot its batch pinned; one
+    idle-slot compaction (the log is then 2 deep); then the appended and
+    updated records served exactly from the head."""
+    n, rb = base.n, cfg.record_bytes
+    live = VersionedStore(base, shards=8)
+    fe = pir_ct.make_async_frontend(cfg, store=live, seed=7)
+    fe.compact_log_depth = 2
+    pipe = fe.pipeline
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (burst,) = pir_delta_batch(n, rb, updates=10_000, seed=3, step=0)
+    (grow,) = pir_delta_batch(n, rb, appends=64, seed=3, step=1)
+    updated = [int(i) for i in burst.indices[:16]]
+    old = {i: base.record_bytes(i) for i in updated}
+    scatter0 = scatter_rows.launches
+    with fe:
+        warm = rng.integers(0, n, size=8)
+        futs = [fe.submit(f"w{c}", int(i)) for c, i in enumerate(warm)]
+        if not fe.drain(timeout=300.0):
+            raise AssertionError("serve_async_live_ct: no drain")
+        _check_futures("serve_async_live_ct", futs, warm, base)
+        t = time.perf_counter()
+        queued = 0
+        for delta in (burst, grow):
+            fe.ingest(delta)
+            queued += 1
+        racing = [fe.submit(f"u{c}", i) for c, i in enumerate(updated)]
+        if not fe.drain(timeout=300.0):
+            raise AssertionError("serve_async_live_ct: no drain")
+        ingest_s = time.perf_counter() - t
+        m = fe.metrics
+        if m["ingested"] != queued or pipe.pending_deltas:
+            raise AssertionError(
+                f"serve_async_live_ct: {m['ingested']} deltas counted after "
+                f"drain(), {queued} queued")
+        head = live.snapshot()
+        new = {i: head.record_bytes(i) for i in updated}
+        if sum(not np.array_equal(old[i], new[i]) for i in updated) == 0:
+            raise AssertionError("the update burst changed none of its rows")
+        # each lookup answers the version its batch pinned: before or
+        # after the burst, never a torn mix
+        for f, i in zip(racing, updated):
+            got = f.result(timeout=60.0)
+            if not (np.array_equal(got, old[i]) or np.array_equal(got, new[i])):
+                raise AssertionError(f"index {i} answered neither version")
+        pinned_old = sum(np.array_equal(f.result(), old[i])
+                         and not np.array_equal(old[i], new[i])
+                         for f, i in zip(racing, updated))
+        # the idle slot's compaction (the log is 2 deep)
+        t = time.perf_counter()
+        deadline = t + 120.0
+        while fe.metrics["compacted"] < 1:
+            if time.perf_counter() > deadline:
+                raise AssertionError("no idle-slot compaction in 120 s")
+            time.sleep(0.01)
+        compact_wait_s = time.perf_counter() - t
+        picks = [n + 7, n + 63] + updated[:6]
+        futs = [fe.submit(f"a{c}", i) for c, i in enumerate(picks)]
+        if not fe.drain(timeout=300.0):
+            raise AssertionError("serve_async_live_ct: no drain")
+        for f, i in zip(futs, picks):
+            if not np.array_equal(f.result(timeout=60.0),
+                                  live.snapshot().record_bytes(i)):
+                raise AssertionError(f"serve_async_live_ct: wrong record {i}")
+        if not np.array_equal(futs[0].result(), grow.raw[7]):
+            raise AssertionError("appended record n + 7 is not served")
+        m = fe.metrics
+    scatter = scatter_rows.launches - scatter0
+    if scatter <= 0 or m["compacted"] != 1 or live.log_depth != 0:
+        raise AssertionError(f"serve_async_live_ct: scatter {scatter}, {m}")
+    emit({"phase": "serve_async_live_ct", "n": n, "n_after": live.n,
+          "record_bytes": rb, "d": cfg.d, "version": live.version,
+          "deltas_queued": queued, "ingested": m["ingested"],
+          "compacted": m["compacted"], "scatter_rows_launches": scatter,
+          "ingest_and_lookups_s": ingest_s,
+          "compaction_wait_s": compact_wait_s,
+          "lookups_answering_the_pre_burst_version": int(pinned_old),
+          "store": dict(live.metrics), "served": m["served"],
+          "failed": m["failed"], "memory_resident_at_start": resident,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+
+
+def fleet_ct(label, pir_ct, cfg, store_, scenario, queue_limit, shed,
+             smi):
+    """``run_scenario`` over the CT pipeline by the card's defaults,
+    every answer the pipeline hands out held against its record after the
+    run (a spy on ``execute_planned`` keeps them)."""
+    from repro_torch.fleet import run_scenario
+
+    pipe = pir_ct.make_serving_pipeline(cfg, store=store_, seed=9)
+    pop = pir_ct.make_fleet_population(cfg, seed=scenario.seed)
+    handed = []
+    real = pipe.execute_planned
+
+    def spy(planned):
+        out = real(planned)
+        # (servers answered, payload rows, bucket) of a batch that went
+        # to the wire; None for one the cache answered whole
+        tag = None if planned.routed is None else (
+            len(planned.routed.servers),
+            int(planned.routed.payload.shape[0]), planned.padded)
+        handed.extend((r.index, a, tag) for r, a in out)
+        return out
+
+    pipe.execute_planned = spy
+    healthy = pipe.price
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rep = run_scenario(scenario, pipe, pop, queue_limit=queue_limit,
+                       shed_policy=shed)
+    for i, a, tag in handed:
+        if not np.array_equal(a, store_.record_bytes(int(i))):
+            raise AssertionError(
+                f"{label}: wrong record for index {i} (servers, payload "
+                f"rows, bucket of its batch: {tag})")
+    slo = rep.slo
+    fm = rep.frontend_metrics
+    if slo["failed"] != 0 or len(handed) != slo["served"]:
+        raise AssertionError(f"{label}: {slo}, {len(handed)} answers")
+    if fm["accepted"] != slo["served"] + slo["refused"]:
+        raise AssertionError(f"{label}: accepted {fm['accepted']} != "
+                             f"served + refused ({slo})")
+    line = {"phase": label, "card": smi, "scenario": rep.scenario,
+            "n": store_.n, "d": cfg.d, "bucket": cfg.query_batch,
+            "clients": pop.n_clients, "cache_entries": cfg.cache_entries,
+            "max_wait_ms": cfg.max_wait_ms, "queue_limit": queue_limit,
+            "shed_policy": shed, "arrivals": rep.arrivals,
+            "wall_s": rep.wall_s, "slo": slo, "healthy_price": healthy,
+            "price": rep.price, "degraded": rep.degraded,
+            "remeshes": rep.remeshes, "unserviceable": rep.unserviceable,
+            "d_effective": pipe.metrics["d_effective"],
+            "frontend": {k: fm[k] for k in (
+                "accepted", "served", "shed", "failed", "batches",
+                "prefilled", "autotuned", "cache_hits")},
+            "answers_checked": len(handed),
+            "memory_resident_at_start": resident,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    return line, pipe
+
+
+def async_and_fleet(pir_ct, online, store, red, small, rng, wrappers,
+                    sync_sparse, smi, read_counts, reset_counts, scatter_rows):
+    """The async front at the CT scale (double-buffered, single-threaded,
+    against the synchronous phase's flushes), Chor and the reduced fused
+    paths through it, a live store behind it, and the fleet harness: a
+    Poisson scenario that loses two replicas mid-run, bursty arrivals
+    against a 64-slot door, and a synthetic herd that fills it. Returns
+    each path's launch counts."""
+    from repro_torch.data.pipeline import pir_delta_batch
+    from repro_torch.db import VersionedStore
+    from repro_torch.dist.fault import pir_degraded_privacy
+    from repro_torch.fleet import (
+        BurstyArrivals, FaultEvent, FleetScenario, PoissonArrivals,
+    )
+
+    d = online.d
+    by_path = {}
+    # what earlier phases left for the collector (autotune_ct's 12.29 GB
+    # of planes among it) would otherwise sit under these phases' peaks
+    gc.collect()
+    torch.cuda.empty_cache()
+    # no cache: no banked plans, so both forms plan as serve_sparse_ct did
+    plain = dataclasses.replace(online, cache_entries=0)
+    runs = {}
+    for form, double in (("double_buffered", True), ("single", False)):
+        runs[form], by_path[f"serve_async_sparse_ct_{form}"] = serve_async(
+            "serve_async_sparse_ct", pir_ct, plain, store, rng, wrappers,
+            {"indices_from_mask": d, "gather_xor": d}, 256, read_counts,
+            reset_counts, double_buffer=double, trace=double)
+    sync_s = sync_sparse["flush_s"][-1]
+    emit({"phase": "serve_async_sparse_ct", "card": smi, **{
+        k: v for k, v in runs["double_buffered"].items()
+        if k not in ("phase", "double_buffer")},
+        "single": {k: runs["single"][k] for k in (
+            "wall_s", "batches", "flushes_per_s", "lookups_per_s",
+            "launches_a_batch", "memory_resident_at_start",
+            "max_memory_allocated")},
+        "sync": {"flush_s": sync_sparse["flush_s"],
+                 "flushes_per_s": 1.0 / sync_s,
+                 "lookups_per_s": online.query_batch / sync_s,
+                 "max_memory_allocated":
+                     sync_sparse["max_memory_allocated"]}})
+    chor, by_path["serve_async_chor_ct"] = serve_async(
+        "serve_async_chor_ct", pir_ct, dataclasses.replace(plain,
+                                                           scheme="chor"),
+        store, rng, wrappers, {"xor_fold": d}, 64, read_counts,
+        reset_counts)
+    emit(chor)
+    reset_counts()
+    serve_async_reduced(pir_ct, red, small, rng, wrappers)
+    by_path["serve_async_reduced"] = read_counts()
+    for name in ("fused_gather_fold", "fused_multi_gather_fold"):
+        if by_path["serve_async_reduced"][name] <= 0:
+            raise AssertionError(f"serve_async_reduced never launched {name}")
+    reset_counts()
+    serve_async_live(pir_ct, plain, store, rng, pir_delta_batch,
+                     VersionedStore, scatter_rows)
+    by_path["serve_async_live_ct"] = read_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the fleet: half the rate the double-buffered front sustained above
+    rate = 0.5 * runs["double_buffered"]["lookups_per_s"]
+    fleet_cfg = dataclasses.replace(online, cache_entries=4096,
+                                    max_wait_ms=10.0, fleet_clients=1000)
+    reset_counts()
+    line, pipe = fleet_ct(
+        "fleet_sparse_ct", pir_ct, fleet_cfg, store,
+        FleetScenario(name="fleet_sparse_ct", arrivals=PoissonArrivals(rate),
+                      duration_s=4.0,
+                      faults=(FaultEvent(1.6, d - 2), FaultEvent(1.6, d - 1)),
+                      heartbeat_timeout_s=0.1, seed=0),
+        8192, "reject", smi)
+    by_path["fleet_sparse_ct"] = read_counts()
+    info = pir_degraded_privacy(d=d, d_a=online.d_a, failed=2,
+                                scheme="sparse", n=store.n,
+                                theta=online.theta)
+    if (line["remeshes"] != 1 or line["d_effective"] != d - 2
+            or line["degraded"] != info
+            or pipe.price != (info["epsilon"], info["delta"])
+            or tuple(line["price"]) != pipe.price):
+        raise AssertionError(f"fleet_sparse_ct: {line}, expected {info}")
+    emit({**line, "rate_qps": rate, "pir_degraded_privacy": info})
+    del pipe
+    # bursty arrivals at 5x the fleet's rate for 2 s, in the shape the
+    # launcher's --arrivals bursty gives them (a burst of 5x the base rate
+    # for the first fifth of every quarter of the run), against a door of
+    # 64; whether any are shed is reported, not required
+    from repro_torch.launch.fleet import build_args, make_arrivals
+
+    bursty = make_arrivals(build_args().parse_args(
+        ["--arrivals", "bursty", "--rate", str(rate), "--duration", "2.0"]))
+    reset_counts()
+    line, pipe = fleet_ct(
+        "fleet_bursty_ct", pir_ct, fleet_cfg, store,
+        FleetScenario(name="fleet_bursty_ct", arrivals=bursty,
+                      duration_s=2.0, seed=1),
+        64, "reject", smi)
+    by_path["fleet_bursty_ct"] = read_counts()
+    healthy = pipe.staged.privacy(store.n)
+    if (line["remeshes"] != 0 or pipe.price != healthy
+            or tuple(line["price"]) != healthy):
+        raise AssertionError(f"fleet_bursty_ct: {line}")
+    emit({**line, "base_qps": bursty.base_qps,
+          "burst_qps": bursty.burst_qps, "period_s": bursty.period_s,
+          "duty": bursty.duty})
+    del pipe
+    # a synthetic stress test of the shed path, not a traffic mix: the
+    # same mean rate with all of it above the base rate arriving in one
+    # window of well under a millisecond, so that the 64-slot door fills
+    # (admission takes microseconds an item, so the bursts above never
+    # fill it)
+    herd_qps, period = 400_000.0, 2.0
+    duty = 4.0 * rate / (herd_qps - rate)
+    reset_counts()
+    line, pipe = fleet_ct(
+        "fleet_bursty_shed_ct", pir_ct, fleet_cfg, store,
+        FleetScenario(name="fleet_bursty_shed_ct",
+                      arrivals=BurstyArrivals(base_qps=rate,
+                                              burst_qps=herd_qps,
+                                              period_s=period, duty=duty),
+                      duration_s=2.0, seed=1),
+        64, "reject", smi)
+    by_path["fleet_bursty_shed_ct"] = read_counts()
+    if (line["slo"]["shed"] <= 0 or line["remeshes"] != 0
+            or pipe.price != healthy or tuple(line["price"]) != healthy):
+        raise AssertionError(f"fleet_bursty_shed_ct: {line}")
+    emit({**line, "synthetic": True,
+          "switch_interval_s": sys.getswitchinterval(),
+          "base_qps": rate, "burst_qps": herd_qps,
+          "period_s": period, "duty": duty,
+          "mean_qps": rate + duty * (herd_qps - rate)})
+    del pipe
+    for path in ("serve_async_live_ct", "fleet_sparse_ct",
+                 "fleet_bursty_ct", "fleet_bursty_shed_ct"):
+        for name in ("gather_xor", "indices_from_mask"):
+            if by_path[path][name] <= 0:
+                raise AssertionError(f"{path} never launched {name}")
+    if by_path["serve_async_live_ct"]["scatter_rows"] <= 0:
+        raise AssertionError("serve_async_live_ct never launched scatter_rows")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def check_flash(label, bh, sq, d, dtype, causal, window, dev,
                 flash_attention_fwd, flash_attention_plain, plain_rows=None,
                 iters=10, device_runs=0):
@@ -2182,10 +2701,12 @@ def main() -> int:
             k: f_.launches - at_start[k] for k, f_ in wrappers.items()
             if f_.launches != at_start[k]}
         emit(line)
+        return line
 
     online = dataclasses.replace(cfg, query_batch=8)
-    serve("serve_sparse_ct", online, store, 2, 8, "gather_xor", "sparse",
-          breakdown=True, expect_also=("indices_from_mask",))
+    sync_sparse = serve("serve_sparse_ct", online, store, 2, 8, "gather_xor",
+                        "sparse", breakdown=True,
+                        expect_also=("indices_from_mask",))
     serve("serve_chor_ct", dataclasses.replace(online, scheme="chor"),
           store, 2, 8, "xor_fold", "fold", breakdown=True)
     serve("serve_reduced_sparse", red, small, 2, 8, "fused_gather_fold",
@@ -2267,6 +2788,11 @@ def main() -> int:
     reset_counts()
     autotune_ct(pir_ct, online, store, dev, rng, smi)
     by_path["autotune_ct"] = read_counts()
+
+    # ------------------------- 9b the async front and the fleet harness
+    by_path.update(async_and_fleet(
+        pir_ct, online, store, red, small, rng, wrappers, sync_sparse, smi,
+        read_counts, reset_counts, scatter_rows))
 
     # ------------------------------------ 10 the attention models: SmolLM
     by_path.update(serve_lm_smollm(dev, smi, flash_attention_fwd,

@@ -50,7 +50,12 @@ def device_fingerprint(device: DeviceLike = None) -> Dict[str, str]:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (a no-op for the CPU) — what a
-    host-clock latency sample must end in."""
+    """Wait for the work the calling thread queued on ``device``: its
+    current stream, not the whole device (a no-op for the CPU). This is
+    what a host-clock latency sample must end in. Stream-local on purpose:
+    the async front executes a batch on a side stream while the next one
+    is planned on the default stream, and a device-wide wait would bill
+    that planning to every sample. On the synchronous path the current
+    stream is the default one, which holds all of the path's work."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()

@@ -138,7 +138,7 @@ class PIRConfig:
     # serving-pipeline knobs (repro_torch.serve.BatchScheduler)
     max_wait_ms: float = 5.0          # deadline before a partial batch cuts
     target_latency_ms: float = 50.0   # adaptive batch-size target
-    # async ingest front (not ported yet; carried for config compatibility)
+    # async ingest front (repro_torch.serve.AsyncFrontend)
     ingest_workers: int = 2
     queue_limit: int = 8192
     # cross-batch cache (repro_torch.serve.QueryCache); 0 = no cache
@@ -151,7 +151,7 @@ class PIRConfig:
     fused_vmem_budget_bytes: int = 0  # fused-kernel shared-memory gate
                                       # override (the name is the reference
                                       # config's); 0 = ask the device
-    # fleet harness (not ported yet; carried)
+    # fleet harness (repro_torch.fleet)
     heartbeat_timeout_s: float = 30.0
     fleet_clients: int = 10_000
     fleet_zipf_a: float = 1.3

@@ -7,7 +7,9 @@ operating point: ε ≈ 3.6e-15 at d_a = d/2, ≈ 2.2 at d_a = d−1).
 :func:`scheme_from_config` / :func:`make_serving_pipeline` build the
 repro_torch.serve pipeline straight from a PIRConfig — the one-call path
 from "the paper's workload" to a running, budgeted, batch-scheduled
-server on the card."""
+server on the card; :func:`make_async_frontend` puts the concurrent front
+over it and :func:`make_fleet_population` sizes the fleet harness's
+clients for it."""
 
 import dataclasses
 
@@ -109,4 +111,37 @@ def make_serving_pipeline(
         ),
         device=dev,
         **kw,
+    )
+
+
+def make_async_frontend(
+    cfg: PIRConfig = CONFIG, store=None, *, device: DeviceLike = None, **kw
+):
+    """PIRConfig -> repro_torch.serve.AsyncFrontend over the config's
+    pipeline on ``device`` (None: the CUDA card, an error without one):
+    the one-call path from the paper's workload to a concurrent, budgeted,
+    cached server. Not started — use ``with make_async_frontend(cfg):`` or
+    call ``.start()``. ``kw`` forwards to :func:`make_serving_pipeline`."""
+    from repro_torch.serve import AsyncFrontend
+
+    return AsyncFrontend(
+        make_serving_pipeline(cfg, store=store, device=device, **kw),
+        ingest_workers=cfg.ingest_workers,
+        queue_limit=cfg.queue_limit,
+    )
+
+
+def make_fleet_population(cfg: PIRConfig = CONFIG, budget_queries=None, seed=0):
+    """PIRConfig -> repro_torch.fleet.ClientPopulation sized for the
+    config's store. ``budget_queries=(lo, hi)`` puts every client on a
+    finite allowance drawn at the pipeline's price."""
+    from repro_torch.fleet import ClientPopulation
+
+    return ClientPopulation(
+        n_clients=cfg.fleet_clients,
+        n_records=cfg.n_records,
+        zipf_a=cfg.fleet_zipf_a,
+        repoll_p=cfg.fleet_repoll_p,
+        budget_queries=budget_queries,
+        seed=seed,
     )

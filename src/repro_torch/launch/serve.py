@@ -12,18 +12,26 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --scheme as-direct \
         --p 100 --u 1000 --cache-entries 4096 --autotune-file at.json
 
-Runs on the CUDA card; ``--device cpu`` names the CPU explicitly. Prints
-per-batch latency (host clock, ending in a device synchronisation),
-throughput, the (ε, δ) price per query, and the engine's cumulative cost
-metrics (records touched vs the Table-1 model). Every served batch is
-checked against the store it was served from. Only the synchronous
-submit+flush front is ported (the async front and ``--compact-depth``
-are not).
+    # the concurrent front (futures, double-buffered flush) from 4
+    # submitter threads, over a live store with idle-slot compaction:
+    PYTHONPATH=src python -m repro_torch.launch.serve --frontend async \
+        --submitters 4 --ingest-every 32 --ingest-rows 64 --compact-depth 2
+
+Runs on the CUDA card; ``--device cpu`` names the CPU explicitly. The sync
+front prints per-batch latency (host clock, ending in a synchronisation of
+the stream the batch ran on), throughput, the (ε, δ) price per query, and
+the engine's cumulative cost metrics (records touched vs the Table-1
+model); every served batch is checked against the store it was served
+from. The async front submits from ``--submitters`` concurrent threads
+through the bounded ingest queue, checks every future against the store,
+and reports end-to-end future-resolution throughput plus the front's
+counters.
 """
 
 from __future__ import annotations
 
 import argparse
+import threading
 import time
 
 import numpy as np
@@ -35,6 +43,7 @@ from repro_torch.data.pipeline import pir_delta_batch
 from repro_torch.db import VersionedStore, make_synthetic_store
 from repro_torch.kernels import registered_backends
 from repro_torch.serve import (
+    AsyncFrontend,
     BatchScheduler,
     QueryCache,
     ServingPipeline,
@@ -57,16 +66,27 @@ def build_args() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--max-wait-ms", type=float, default=0.0)
     ap.add_argument("--eps-budget", type=float, default=float("inf"))
-    ap.add_argument("--frontend", choices=["sync"], default="sync",
-                    help="sync: submit+flush loop (the async front is not "
-                         "ported yet)")
+    ap.add_argument("--frontend", choices=["sync", "async"], default="sync",
+                    help="sync: submit+flush loop; async: AsyncFrontend "
+                         "ingest queue with per-request futures")
+    ap.add_argument("--ingest-workers", type=int, default=2)
+    ap.add_argument("--queue-limit", type=int, default=8192)
+    ap.add_argument("--submitters", type=int, default=4,
+                    help="concurrent submitter threads (async frontend)")
     ap.add_argument("--cache-entries", type=int, default=0,
                     help="cross-batch cache slots; 0 disables the cache")
     ap.add_argument("--ingest-every", type=int, default=0,
                     help="serve a live VersionedStore and append one delta "
-                         "every N queries served; 0 = frozen store")
+                         "every N queries (sync: per N served; async: per "
+                         "N submitted, through the flush worker's idle "
+                         "slot); 0 = frozen store")
     ap.add_argument("--ingest-rows", type=int, default=64,
                     help="records appended per ingest delta")
+    ap.add_argument("--compact-depth", type=int, default=0,
+                    help="rebase the live store's delta log onto a new "
+                         "frozen base in the flush worker's idle slot once "
+                         "it passes this depth (async frontend); 0 = "
+                         "compaction off")
     ap.add_argument("--backend", default="auto",
                     choices=sorted(registered_backends()),
                     help="execution backend (repro_torch.kernels.backend "
@@ -124,14 +144,19 @@ def make_engine(args) -> ServingPipeline:
     )
 
 
-def _feed_delta(args, engine: ServingPipeline, step: int) -> None:
+def _feed_delta(args, engine: ServingPipeline, step: int,
+                frontend=None) -> None:
     """One append delta of write traffic against the live store
-    (deterministic in step, like the query stream)."""
+    (deterministic in step, like the query stream): applied at once, or
+    queued for the front's idle slot."""
     for delta in pir_delta_batch(
         engine.store.n, args.record_bytes,
         appends=args.ingest_rows, seed=2, step=step,
     ):
-        engine.ingest(delta)
+        if frontend is None:
+            engine.ingest(delta)
+        else:
+            frontend.ingest(delta)
 
 
 def run_sync(args, engine: ServingPipeline) -> None:
@@ -173,6 +198,67 @@ def run_sync(args, engine: ServingPipeline) -> None:
     print(f"\n{served} queries in {wall:.2f}s; engine metrics: {engine.metrics}")
 
 
+def run_async(args, engine: ServingPipeline) -> None:
+    rng = np.random.default_rng(1)
+    per = -(-args.queries // args.submitters)
+    indices = [rng.integers(0, args.n, size=per)
+               for _ in range(args.submitters)]
+    futures = [[] for _ in range(args.submitters)]
+
+    with AsyncFrontend(
+        engine, ingest_workers=args.ingest_workers,
+        queue_limit=args.queue_limit, shed_policy="block",
+        compact_log_depth=args.compact_depth or None,
+    ) as fe:
+        t_start = time.perf_counter()
+
+        def feed(s: int) -> None:
+            for j, q in enumerate(indices[s]):
+                # submitter 0 doubles as the writer: one append delta per
+                # --ingest-every submits, applied in the flush worker's
+                # idle slot (appends only, so every queried index keeps
+                # its bytes and the futures below verify exact)
+                if args.ingest_every and s == 0 and j % args.ingest_every == 0:
+                    _feed_delta(args, engine, j, frontend=fe)
+                futures[s].append(fe.submit(f"client-{s}-{j % 32}", int(q)))
+
+        threads = [threading.Thread(target=feed, args=(s,))
+                   for s in range(args.submitters)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if not fe.drain(timeout=600.0):
+            raise RuntimeError("the front did not drain within 600 s")
+        wall = time.perf_counter() - t_start
+
+        refused = served = 0
+        for s, futs in enumerate(futures):
+            for j, fut in enumerate(futs):
+                try:
+                    answer = fut.result(timeout=5.0)
+                except PermissionError:
+                    refused += 1
+                    continue
+                q = int(indices[s][j])
+                if not (answer == engine.store.record_bytes(q)).all():
+                    raise RuntimeError(f"wrong record for index {q}")
+                served += 1
+        print(f"{served} served (+{refused} budget-refused) from "
+              f"{args.submitters} concurrent submitters in {wall:.2f}s "
+              f"({served/wall:8.0f} qps end-to-end, futures verified exact)")
+        if args.ingest_every:
+            print(f"live store: v{engine.store_version}, n={engine.store.n} "
+                  f"({fe.metrics['ingested']} idle-slot ingests)")
+            if args.compact_depth:
+                live = engine.live
+                print(f"compaction: {fe.metrics['compacted']} idle-slot "
+                      f"rebases ({live.metrics['compacted_deltas']} deltas "
+                      f"compacted, log depth now {live.log_depth}, base at "
+                      f"v{live.base_version})")
+        print(f"frontend metrics: {fe.metrics}")
+
+
 def main(argv=None) -> None:
     args = build_args().parse_args(argv)
     engine = make_engine(args)
@@ -183,7 +269,10 @@ def main(argv=None) -> None:
           f"frontend={args.frontend} device={engine.device}")
     print(f"eps/query={eps:.4g} delta/query={delta:.4g} "
           f"costs={scheme.costs(args.n)}")
-    run_sync(args, engine)
+    if args.frontend == "async":
+        run_async(args, engine)
+    else:
+        run_sync(args, engine)
     print(f"scheduler target batch: {engine.scheduler.target_batch}; "
           f"backend={engine.backend.backend_name} "
           f"paths: {engine.backend.path_counts}")

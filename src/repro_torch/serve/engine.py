@@ -34,8 +34,12 @@ serves its current frozen head and applies deltas with :meth:`ingest`;
 every batch pins the snapshot it was planned against and is answered
 against it, whatever lands in between.
 
-Not ported yet (ROADMAP.md Queue A): replica-loss degradation and the
-async front.
+Replica loss degrades rather than stops the service:
+:meth:`ServingPipeline.degrade_replicas` re-fits the scheme to the
+survivors and re-prices admission, and refuses everyone once the
+survivors could all be corrupt. The pipeline itself stays single-threaded;
+the thread-safe concurrent front over it is
+:class:`~repro_torch.serve.frontend.AsyncFrontend`.
 
 :class:`PIRServingEngine` is the back-compat facade over the pipeline.
 """
@@ -60,6 +64,11 @@ from repro_torch.core.protocol import (
 from repro_torch.db import packing
 from repro_torch.db.live import Delta, VersionedStore
 from repro_torch.db.store import RecordStore
+from repro_torch.dist.fault import (
+    RemeshPlan,
+    plan_elastic_remesh,
+    scheme_degradation,
+)
 from repro_torch.kernels.backend import ExecutionPlan
 from repro_torch.serve.cache import QueryCache, block_pre_ready, scheme_signature
 from repro_torch.serve.router import SchemeRouter
@@ -173,18 +182,28 @@ class ServingPipeline:
         # generator, so a front may plan batch k+1 while batch k executes;
         # the heavy device work runs outside the lock
         self._phase_lock = threading.Lock()
-        # the per-query (ε, δ) price is constant (fixed scheme, fixed n):
-        # compute once so admission is O(1) float math
+        # the per-query (ε, δ) price is constant between remeshes (fixed
+        # scheme, fixed n): compute once so admission is O(1) float math;
+        # degrade_replicas re-prices it when survivors shrink the scheme
         self._eps_per_query, self._delta_per_query = self.staged.privacy(
             store.n
         )
+        # replica-loss state: the healthy scheme is kept so cumulative
+        # failures always degrade from the original d, not from an
+        # already-degraded intermediate
+        self._base_staged: SchemeProtocol = self.staged
+        self._failed_replicas: set = set()
+        self._serviceable = True
+        self.last_remesh: Optional[RemeshPlan] = None
+        self.degraded: Optional[Dict[str, float]] = None
         self.metrics = {
             "queries": 0, "batches": 0, "records_touched": 0.0,
             "blocks_sent": 0.0, "refused": 0, "padded": 0, "truncated": 0,
-            "cache_hits": 0,
+            "cache_hits": 0, "remeshes": 0,
             "d_effective": float(self.staged.d),
             "epsilon_per_query": self._eps_per_query,
             "delta_per_query": self._delta_per_query,
+            "unserviceable": 0,
             "ingests": 0, "records_ingested": 0,
         }
 
@@ -201,7 +220,9 @@ class ServingPipeline:
 
     @property
     def price(self) -> Tuple[float, float]:
-        """The per-query (ε, δ) admission price."""
+        """The per-query (ε, δ) admission price currently charged.
+        Constant between remeshes; replica loss re-prices it through
+        :meth:`degrade_replicas` ((∞, δ) once unserviceable)."""
         return self._eps_per_query, self._delta_per_query
 
     def _budget_token(self, client: str) -> tuple:
@@ -219,7 +240,15 @@ class ServingPipeline:
         cache's refusal memo short-circuits repeated over-budget polls: it
         is keyed on the exact budget state the refusal was computed from,
         so any budget change re-consults the accountant. A refusal spends
-        nothing."""
+        nothing.
+
+        An unserviceable pipeline (replica loss left d' ≤ d_a: privacy
+        would rest entirely on corrupt servers) refuses everyone — an
+        explicit flag, not an ∞ price, because the default budget's ∞
+        limit would happily "afford" ∞."""
+        if not self._serviceable:
+            self.metrics["refused"] += 1
+            return None
         if self.cache is not None and self.cache.refused(
             client, self._budget_token(client)
         ):
@@ -251,6 +280,9 @@ class ServingPipeline:
         k = len(indices)
         if k == 0:
             raise ValueError("submit_request_many needs at least one index")
+        if not self._serviceable:
+            self.metrics["refused"] += 1
+            return None
         eps, delta = self._eps_per_query, self._delta_per_query
         if not self.budget(client).can_spend(k * eps, k * delta):
             self.metrics["refused"] += 1
@@ -269,6 +301,80 @@ class ServingPipeline:
     @property
     def stats(self) -> Dict[int, ServerStats]:
         return self.backend.stats
+
+    # ------------------------------------------------------- replica loss
+    def degrade_replicas(self, failed: List[int]) -> Dict[str, float]:
+        """Replica-loss hook: degrade, don't outage. Wired to
+        :class:`~repro_torch.dist.fault.HeartbeatMonitor`'s failure edge by
+        the fleet harness; callable directly by ops.
+
+        ``failed`` are replica ids of the *original* d-server deployment
+        (cumulative: ids union with prior losses; repeats are no-ops). The
+        pipeline (1) accounts the degradation —
+        :func:`~repro_torch.dist.fault.scheme_degradation` re-fits the
+        scheme to the d' survivors and prices it with
+        ``pir_degraded_privacy``; (2) swaps in the degraded scheme,
+        re-pricing admission at the new (ε, δ); (3) relabels the backend's
+        survivors and rebuilds the router; (4) invalidates and re-signs the
+        cache (old-d randomness is unreplayable on the survivor wire); (5)
+        records the :func:`~repro_torch.dist.fault.plan_elastic_remesh`
+        plan (as data: nothing is remeshed on the device). Once d' ≤ d_a
+        the pipeline flips unserviceable and refuses all admission.
+
+        Batches planned before the swap still execute and resolve — their
+        wire bits went out under the old scheme, which was honestly priced
+        when their clients were admitted. Returns the degraded-privacy
+        dict."""
+        with self._phase_lock:
+            fresh = {int(f) for f in failed} - self._failed_replicas
+            if not fresh:
+                if self.degraded is not None:
+                    return dict(self.degraded)
+                return {
+                    "d_effective": float(self.staged.d), "serviceable": 1.0,
+                    "epsilon": self._eps_per_query,
+                    "delta": self._delta_per_query,
+                }
+            self._failed_replicas |= fresh
+            d0 = self._base_staged.d
+            survivors = [
+                r for r in range(d0) if r not in self._failed_replicas
+            ]
+            degraded_scheme, info = scheme_degradation(
+                self._base_staged, self.store.n, len(self._failed_replicas)
+            )
+            self.degraded = info
+            self.metrics["remeshes"] += 1
+            self.metrics["d_effective"] = info["d_effective"]
+            self.last_remesh = (
+                plan_elastic_remesh(survivors) if survivors else None
+            )
+            if degraded_scheme is None:
+                self._serviceable = False
+                self.metrics["unserviceable"] = 1
+                self._eps_per_query = float("inf")
+                self._delta_per_query = info["delta"]
+                self.metrics["epsilon_per_query"] = float("inf")
+                self.metrics["delta_per_query"] = info["delta"]
+                return dict(info)
+            self.scheme = self.staged = degraded_scheme
+            self._eps_per_query = info["epsilon"]
+            self._delta_per_query = info["delta"]
+            self.metrics["epsilon_per_query"] = self._eps_per_query
+            self.metrics["delta_per_query"] = self._delta_per_query
+            self.backend.relabel_replicas(survivors)
+            self.router = SchemeRouter(
+                self.staged, pick_servers=self.backend.fastest
+            )
+            if self.cache is not None:
+                # banked pres and memoized columns were drawn for the old
+                # d; the refusal memo goes too (the price rose, so
+                # re-consulting the accountant is the only safe direction)
+                self.cache.invalidate()
+                self.cache.signature = scheme_signature(
+                    degraded_scheme, self.store.n
+                )
+            return dict(info)
 
     def plan_requests(self, batch: List[Request]) -> Optional[PlannedBatch]:
         """Plan one cut batch without executing it: resolve cache hits,
@@ -503,8 +609,10 @@ class ServingPipeline:
             routed = planned.routed
             # service time = this batch's own plan + execute wall time,
             # read on the scheduler's clock so fake-clock tests can pin
-            # exactly what the EMA is fed; the interval ends in a device
-            # synchronisation so it times the work and not its enqueue
+            # exactly what the EMA is fed; the interval ends in a
+            # synchronisation of the stream the work was issued on (the
+            # async front's side stream, or the default one), so it times
+            # the work and not its enqueue, nor a next batch's planning
             clock = self.scheduler.clock
             t1 = clock()
             responses = self.backend.answer_batch(
@@ -575,12 +683,22 @@ class ServingPipeline:
         if self.cache.pre_depth(bucket) >= self.cache.max_pre_batches:
             return 0
         with self._phase_lock:
+            signature = self.cache.signature
             pre = self.router.precompute(self._gen, self.store.n, bucket)
         if pre is None:  # no query-independent half
             return 0
         # computed here, on the producer: banking queued randomness would
         # just move the wait into the next flush
-        return int(self.cache.put_pre(bucket, block_pre_ready(pre)))
+        block_pre_ready(pre)
+        with self._phase_lock:
+            # a remesh (degrade_replicas, from another thread) or an append
+            # may have re-signed the cache while the draw computed: a pre
+            # drawn for the old d or n must never be banked for the new one
+            # (a router takes a pre of another d without a word, and its
+            # answers then XOR the wrong servers)
+            if self.cache.signature != signature:
+                return 0
+            return int(self.cache.put_pre(bucket, pre))
 
     def autotune_step(self, max_cells: int = 1) -> int:
         """Run the execution planner's autotune search for up to
@@ -629,7 +747,7 @@ class ServingPipeline:
                     ver, [int(i) for i in touched],
                     signature=scheme_signature(self.scheme, snap.n),
                 )
-            if not same_shape:
+            if not same_shape and self._serviceable:
                 # an append grew n: the admission price is a function of n
                 self._eps_per_query, self._delta_per_query = (
                     self.staged.privacy(snap.n)

@@ -40,8 +40,11 @@ against an older snapshot is answered against that snapshot
 The backend also owns **straggler tracking**: a latency EMA per database
 replica (the paper's d databases stay *logical* replicas). Every server
 answered by :meth:`answer_batch` feeds its replica's EMA. Each sample is a
-host-clock interval that ends in a device synchronisation, so it times the
-answer and not its enqueue.
+host-clock interval that ends in a synchronisation of the stream the answer
+was issued on (not of the whole device), so it times the answer and not its
+enqueue, and not work another thread queued on another stream meanwhile.
+After replica loss, :meth:`ShardedBackend.relabel_replicas` renumbers the
+survivors.
 """
 
 from __future__ import annotations
@@ -124,6 +127,11 @@ class ShardedBackend:
                 pass  # cold start; save_autotune() creates it
         self.stats: Dict[int, ServerStats] = {}
         self._sim = simulate_latency
+        # the hook as given, on physical ids, and the physical id behind
+        # each logical replica since the last remesh (None: no loss yet,
+        # logical and physical ids agree)
+        self._sim_physical = simulate_latency
+        self._physical: Optional[Tuple[int, ...]] = None
         # the live-store version the backend was last swapped to, and the
         # counters of the mesh refresh; the mesh is not ported, so they
         # stay zero (ROADMAP.md Queue A)
@@ -172,6 +180,35 @@ class ShardedBackend:
     def ensure_replicas(self, d: int) -> None:
         for i in range(d):
             self.stats.setdefault(i, ServerStats())
+
+    def relabel_replicas(self, survivors: List[int]) -> None:
+        """Compact the replica id space after loss: survivor ``s`` (a
+        physical id, of the original deployment) becomes logical replica
+        ``i`` (its rank in ``survivors``, as in
+        :func:`~repro_torch.dist.fault.plan_elastic_remesh`'s sorted
+        survivor tuple). Latency EMAs carry over under the new labels, so
+        the straggler ranking stays warm across a remesh; dead replicas'
+        stats retire. The simulated-latency hook keeps seeing *physical*
+        ids — a simulated-slow machine stays slow whatever logical slot the
+        remesh parks it in.
+
+        ``stats`` is keyed by the current logical ids, so after a first
+        remesh each survivor's stats are found through the labels that
+        remesh gave it (the reference looks them up by physical id, which
+        picks another replica's from the second loss on)."""
+        order = tuple(int(s) for s in survivors)
+        label = ({s: s for s in order} if self._physical is None
+                 else {p: i for i, p in enumerate(self._physical)})
+        self.stats = {
+            i: self.stats.get(label.get(s), ServerStats())
+            for i, s in enumerate(order)
+        }
+        self._physical = order
+        if self._sim_physical is not None:
+            phys = self._sim_physical
+            self._sim = (
+                lambda i: phys(order[i]) if 0 <= i < len(order) else phys(i)
+            )
 
     def observe_latency(self, server: int, dt: float) -> None:
         self.stats.setdefault(server, ServerStats()).observe(dt)
@@ -325,7 +362,8 @@ class ShardedBackend:
         plan and its execution, the answer still comes from the pinned
         snapshot, bit for bit. The latency EMA is fed for **every**
         scheme's servers (only Subset-PIR consumes the ranking); each
-        sample ends in a device synchronisation (d of them per batch).
+        sample ends in a synchronisation of the calling thread's current
+        stream (d of them per batch), never of the whole device.
 
         Returns stacked responses: [d_eff, B, W] (mask) or [d_eff, B, k, W]
         (index), ordered like ``routed.servers``.

@@ -1261,3 +1261,112 @@ def test_scatter_update_launches_the_kernel_on_the_card(cuda_device):
         _same(got, scatter_rows_plain(db, rows[:m], vals[:m]))
     assert scatter_rows.launches - launches == 2
     assert len(autotune_table(cuda_device)) == entries
+
+
+# ------------------------------------------------ the async front on the card
+def _reduced_front(cuda_device, scheme="sparse", **kw):
+    from repro_torch.configs import pir_ct
+
+    cfg = dataclasses.replace(pir_ct.reduced(), scheme=scheme,
+                              max_wait_ms=2.0)
+    return pir_ct.make_async_frontend(cfg, seed=4, **kw)
+
+
+@pytest.mark.parametrize("double_buffer", [True, False])
+@pytest.mark.parametrize("scheme", ["sparse", "chor"])
+def test_async_front_on_the_card_serves_exact_records(cuda_device, scheme,
+                                                      double_buffer):
+    """The front by the config's defaults (the card): every future of many
+    back-to-back batches resolves to its record, single and multi-index,
+    with the execute stage on a side stream when double-buffered."""
+    fe = _reduced_front(cuda_device, scheme)
+    fe.double_buffer = double_buffer
+    pipe = fe.pipeline
+    assert pipe.device.type == "cuda"
+    rng = np.random.default_rng(8)
+    picks = rng.integers(0, pipe.store.n, size=96)
+    with fe:
+        futs = [fe.submit(f"c{i % 7}", int(q)) for i, q in enumerate(picks)]
+        many = fe.submit_many("m", [3, 2000, 3, 17])
+        assert fe.drain(timeout=120.0)
+        assert (fe._side is not None) == double_buffer
+    for q, f in zip(picks, futs):
+        np.testing.assert_array_equal(f.result(timeout=5.0),
+                                      pipe.store.record_bytes(int(q)))
+    np.testing.assert_array_equal(
+        many.result(timeout=5.0),
+        np.stack([pipe.store.record_bytes(i) for i in (3, 2000, 3, 17)]))
+    assert fe.metrics["failed"] == 0 and fe.metrics["served"] == 97
+    assert pipe.metrics["batches"] >= 96 // 8
+
+
+def test_the_side_stream_is_not_the_default_stream(cuda_device):
+    fe = _reduced_front(cuda_device).start()
+    try:
+        side = fe._side
+        assert side is not None and side.device.type == "cuda"
+        assert side != torch.cuda.default_stream(cuda_device)
+        assert side != torch.cuda.current_stream(cuda_device)
+        seen = []
+        real = fe.pipeline.execute_planned
+
+        def spy(planned):
+            seen.append(torch.cuda.current_stream(cuda_device))
+            return real(planned)
+
+        fe.pipeline.execute_planned = spy
+        fut = fe.submit("a", 11)
+        assert fe.drain(timeout=60.0)
+        np.testing.assert_array_equal(fut.result(timeout=5.0),
+                                      fe.pipeline.store.record_bytes(11))
+        assert seen and all(s == side for s in seen)
+    finally:
+        fe.close()
+
+
+def test_answer_batch_never_synchronizes_the_whole_device(cuda_device,
+                                                         monkeypatch):
+    """Each latency sample ends in a synchronisation of the stream the
+    answer was issued on, not ``torch.cuda.synchronize``."""
+    from repro_torch.configs import pir_ct
+
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append(a), real(*a, **k)))
+    pipe = pir_ct.make_serving_pipeline(pir_ct.reduced(), seed=2)
+    for i in range(8):
+        assert pipe.submit(f"c{i}", 5 * i)
+    planned = pipe.plan_requests(pipe.take_batch())
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        out = pipe.execute_planned(planned)
+    assert calls == []
+    assert all(s.n == 1 for s in pipe.stats.values())
+    for r, answer in out:
+        np.testing.assert_array_equal(answer,
+                                      pipe.store.record_bytes(r.index))
+
+
+def test_degrade_replicas_on_the_card_keeps_serving_exactly(cuda_device):
+    from repro_torch.configs import pir_ct
+    from repro_torch.dist.fault import pir_degraded_privacy
+
+    cfg = dataclasses.replace(pir_ct.reduced(), d=5, d_a=2)
+    pipe = pir_ct.make_serving_pipeline(cfg, seed=3)
+    info = pipe.degrade_replicas([4, 1])
+    assert info == pir_degraded_privacy(
+        d=5, d_a=2, failed=2, scheme="sparse", n=pipe.store.n,
+        theta=cfg.theta)
+    assert pipe.price == (info["epsilon"], info["delta"])
+    assert pipe.staged.d == 3 and pipe.last_remesh.survivors == (0, 2, 3)
+    before = gather_xor.launches + fused_gather_fold.launches
+    picks = [0, 7, 2047, 1000, 1000, 3]
+    for i, q in enumerate(picks):
+        assert pipe.submit(f"c{i}", q)
+    out = pipe.flush()
+    for i, q in enumerate(picks):
+        np.testing.assert_array_equal(out[f"c{i}"],
+                                      pipe.store.record_bytes(q))
+    assert gather_xor.launches + fused_gather_fold.launches - before == 3
