@@ -13,8 +13,12 @@ store (Direct Requests with p = d, Subset-PIR among t = d_a + 1 replicas
 picked by the pipeline's latency ranking, Sparse-PIR through an anonymity
 set of u = 1000), the cross-batch cache (hits, a banked precompute) and
 the measured planner (the autotune search of a sparse and a Chor cell,
-its table saved, reloaded, and a foreign one dropped). Between the kernel
-checks and the paths,
+its table saved, reloaded, and a foreign one dropped); then the mesh: the
+CT store over a (2, 4) mesh of the card's positions (Sparse-PIR, Chor and
+Direct Requests, each flush beside the unsharded pipeline's; Chor forced
+to parity on ``reduced()``; a live store whose deltas rewrite only the
+record blocks they touch) and SmolLM's decode with its KV cache split 4
+ways by flash-decode. Between the kernel checks and the paths,
 the fold is timed against the parity path across scheduler buckets at n
 cut to 65 536 and at the full 10^6 (phase ``crossover``). Then the
 attention models at full width: SmolLM-135M serving (prefill and
@@ -2108,6 +2112,399 @@ def serve_private_bert4rec(dev, card, flash, fold, read_counts,
     return counts
 
 
+# ------------------------------------------------------------------ the mesh
+# every mesh position is this card: a (2, 4) mesh is 8 shards on one device
+MESH_SHAPE = (2, 4)
+
+
+def _mesh(dev, shape=MESH_SHAPE):
+    from repro_torch.dist import make_mesh
+
+    return make_mesh(shape, ("data", "model"), [dev])
+
+
+def _rules(**over):
+    from repro_torch.dist import DEFAULT_RULES
+
+    return dict(DEFAULT_RULES, **over)
+
+
+# the records over every position and the batch whole (the reference's
+# xorbfly cell rules)
+XORBFLY = {"records": ("data", "model"), "queries": None}
+
+
+def residency_bytes(arr) -> int:
+    """Bytes of a sharded array's distinct tensors."""
+    return sum({sh.data.data_ptr(): sh.data.numel() * sh.data.element_size()
+                for sh in arr.shards}.values())
+
+
+def _flush(pipe, picks, mesh=None, rules=None):
+    """Submit ``picks`` and flush (on ``mesh`` under ``rules`` when given);
+    returns (answers, seconds)."""
+    from repro_torch.dist import mesh_rules
+
+    for c, i in enumerate(picks):
+        if not pipe.submit(f"client-{c}", int(i)):
+            raise AssertionError("budget refused a query")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if mesh is None:
+        out = pipe.flush()
+    else:
+        with mesh_rules(mesh, rules):
+            out = pipe.flush()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def serve_mesh_ct(pir_ct, cfg, store, dev, rng, card, read_counts,
+                  reset_counts):
+    """The CT store over a (2, 4) mesh of the card: Sparse-PIR, Chor and
+    Direct Requests at bucket 8 with the records over all 8 positions
+    (two flushes each), and Chor under DEFAULT_RULES (queries over "data",
+    records over "model"; one flush). Each mesh flush follows a flush of
+    the unsharded pipeline with the same seed and picks: the records must
+    be equal and the stored ones. The launch counts are set to 0 before
+    each mesh flush and read after it: 8 a server for each kernel of the
+    path. Returns each case's counts."""
+    t_phase = time.perf_counter()
+    mesh = _mesh(dev)
+    d = cfg.d
+    per_server = {"sparse": ("gather_xor", "indices_from_mask"),
+                  "chor": ("xor_fold",), "direct": ()}
+    line = {"phase": "serve_mesh_ct", "card": card, "mesh": dict(mesh.shape),
+            "n": store.n, "record_bytes": cfg.record_bytes, "d": d,
+            "batch": 8, "cases": {}}
+    counts = {}
+    for scheme, label, over, flushes in (
+            ("sparse", "xorbfly", XORBFLY, 2), ("chor", "xorbfly", XORBFLY, 2),
+            ("direct", "xorbfly", XORBFLY, 2), ("chor", "default", {}, 1)):
+        cfg_ = dataclasses.replace(cfg, scheme=scheme)
+        rules = _rules(**over)
+        flat = pir_ct.make_serving_pipeline(cfg_, store=store, device=dev,
+                                            seed=3)
+        sharded = pir_ct.make_serving_pipeline(cfg_, store=store, device=dev,
+                                               seed=3)
+        torch.cuda.reset_peak_memory_stats()
+        case = {"rules": {k: rules[k] for k in ("records", "queries")},
+                "flush_s": [], "unsharded_flush_s": [],
+                "launches_per_flush": []}
+        total = None
+        for _ in range(flushes):
+            picks = rng.integers(0, store.n, size=8)
+            want, t_flat = _flush(flat, picks)
+            reset_counts()
+            got, t_mesh = _flush(sharded, picks, mesh, rules)
+            now = read_counts()
+            total = now if total is None else {
+                k: total[k] + v for k, v in now.items()}
+            launched = {k: v for k, v in now.items() if v}
+            case["flush_s"].append(t_mesh)
+            case["unsharded_flush_s"].append(t_flat)
+            case["launches_per_flush"].append(launched)
+            for c, i in enumerate(picks):
+                rec = store.record_bytes(int(i))
+                if not (np.array_equal(got[f"client-{c}"], rec)
+                        and np.array_equal(want[f"client-{c}"], rec)):
+                    raise AssertionError(f"serve_mesh_ct {scheme}/{label}: "
+                                         f"wrong record {int(i)}")
+            expect = {k: 8 * d for k in per_server[scheme]}
+            if {k: launched.get(k, 0) for k in expect} != expect or (
+                    not expect and launched):
+                raise AssertionError(f"serve_mesh_ct {scheme}/{label}: "
+                                     f"launches {launched}, expected {expect}")
+        state = sharded.backend._mesh_db[id(mesh)]
+        case.update({
+            "path_counts": dict(sharded.backend.path_counts),
+            "shards": len(state["db"].shards), "rshards": state["rshards"],
+            "n_pad": state["n_pad"],
+            "residency_bytes": residency_bytes(state["db"]),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        })
+        line["cases"][f"{scheme}_{label}"] = case
+        counts[f"serve_mesh_ct_{scheme}_{label}"] = total
+        del flat, sharded, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return counts
+
+
+def serve_mesh_parity_reduced(pir_ct, red, small, dev, rng, card,
+                              read_counts, reset_counts):
+    """``reduced()`` Chor at bucket 8 forced to the parity path, on and
+    off the (2, 4) mesh with the same seed: equal records, and
+    ``parity_matmul_packed`` launched 8 times a server on the sharded
+    bit-major planes. Returns the mesh flush's counts."""
+    from repro_torch.serve import ShardedBackend
+
+    t_phase = time.perf_counter()
+    mesh = _mesh(dev)
+    cfg_ = dataclasses.replace(red, scheme="chor", query_batch=8)
+
+    def pipeline():
+        return pir_ct.make_serving_pipeline(
+            cfg_, store=small, device=dev, seed=3,
+            backend=ShardedBackend(small, backend=cfg_.backend,
+                                   parity_min_batch=8, device=dev))
+
+    flat, sharded = pipeline(), pipeline()
+    picks = rng.integers(0, small.n, size=8)
+    want, t_flat = _flush(flat, picks)
+    reset_counts()
+    got, t_mesh = _flush(sharded, picks, mesh, _rules(**XORBFLY))
+    counts = read_counts()
+    for c, i in enumerate(picks):
+        rec = small.record_bytes(int(i))
+        if not (np.array_equal(got[f"client-{c}"], want[f"client-{c}"])
+                and np.array_equal(got[f"client-{c}"], rec)):
+            raise AssertionError(f"serve_mesh_parity_reduced: record {i}")
+    if (counts["parity_matmul_packed"] != 8 * cfg_.d
+            or sharded.backend.path_counts["parity"] != cfg_.d):
+        raise AssertionError(f"serve_mesh_parity_reduced: {counts}, "
+                             f"{sharded.backend.path_counts}")
+    planes = sharded.backend._mesh_db[id(mesh)]["planes"]
+    n_loc = small.n // 8
+    layouts = {(tuple(sh.data.shape), sh.data.stride()) for sh in planes.shards}
+    if layouts != {((n_loc, small.record_bits), (1, n_loc))} or len(
+            {sh.data.data_ptr() for sh in planes.shards}) != 8:
+        raise AssertionError(f"serve_mesh_parity_reduced: planes shards are "
+                             f"not bit-major blocks of their own: {layouts}")
+    emit({"phase": "serve_mesh_parity_reduced", "card": card,
+          "mesh": dict(mesh.shape), "n": small.n,
+          "record_bytes": cfg_.record_bytes, "d": cfg_.d, "batch": 8,
+          "flush_s": t_mesh, "unsharded_flush_s": t_flat,
+          "planes_shard": {"shape": [n_loc, small.record_bits],
+                           "stride": [1, n_loc]},
+          "planes_residency_bytes": residency_bytes(planes),
+          "path_counts": dict(sharded.backend.path_counts),
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def serve_mesh_live_ct(pir_ct, cfg, base, dev, rng, Delta, VersionedStore,
+                       pir_delta_batch, scatter_rows, card, read_counts,
+                       reset_counts):
+    """A live CT store (``VersionedStore(shards=8)``) answered on the
+    (2, 4) mesh while four deltas land: a 10 000-row update burst inside
+    the first two of the 8 record blocks, 100 deletes in blocks 0 and 6, a
+    64-record append (10^6 divides by 8, so no pad is left: the residency
+    is dropped and rebuilt) and a 1 % update burst over every block. For
+    each: the refresh counters equal ``touched_record_blocks``, untouched
+    blocks keep their storage, ``scatter_rows`` launches once a rewritten
+    block, and the answers are the snapshot's rows; the refresh (plus the
+    first batch after it) is timed against ``reshard="full"`` plus the
+    first batch, which rebuilds. Returns the phase's counts."""
+    from repro_torch.dist import mesh_rules, touched_record_blocks
+    from repro_torch.serve import SchemeRouter, ShardedBackend
+
+    t_phase = time.perf_counter()
+    mesh, rules = _mesh(dev), _rules(**XORBFLY)
+    n, rb = base.n, cfg.record_bytes
+    live = VersionedStore(base, shards=8)
+    backend = ShardedBackend(live.snapshot(), backend=cfg.backend, device=dev)
+    router = SchemeRouter(pir_ct.scheme_from_config(cfg))
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def answer(extra=()):
+        q = list(extra) + list(rng.integers(0, live.n, size=8 - len(extra)))
+        tq = router.plan(gen, live.n, torch.tensor(q, device=dev))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mesh_rules(mesh, rules):
+            resp = backend.answer_batch(tq, scheme=router.scheme)
+        got = router.finalize(tq, resp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if not torch.equal(got, live.snapshot().packed[q]):
+            raise AssertionError("serve_mesh_live_ct: a record is not the "
+                                 "snapshot's")
+        return dt
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first_s = answer()
+    block = n // 8
+    (burst_all,) = pir_delta_batch(n + 64, rb, updates=10_000, seed=3, step=0)
+    deltas = [
+        ("update_10000_blocks_0_1", Delta.update(
+            rng.choice(2 * block, 10_000, replace=False),
+            rng.integers(0, 256, size=(10_000, rb), dtype=np.uint8))),
+        ("delete_100_blocks_0_6", Delta.delete(np.concatenate([
+            rng.choice(block, 50, replace=False),
+            6 * block + rng.choice(block, 50, replace=False)]))),
+        ("append_64", Delta.append(
+            rng.integers(0, 256, size=(64, rb), dtype=np.uint8))),
+        ("update_10000_every_block", burst_all),
+    ]
+    out = {}
+    for label, delta in deltas:
+        state = backend._mesh_db[id(mesh)]
+        touched = live.touched_rows(delta, n_before=live.n)
+        t = time.perf_counter()
+        live.ingest(delta)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t
+        snap = live.snapshot()
+        fits = snap.n <= state["n_pad"]
+        want = (set(touched_record_blocks(touched, state["n_pad"],
+                                          state["rshards"])) if fits else None)
+        ptrs = [sh.data.data_ptr() for sh in state["db"].shards]
+        before = scatter_rows.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        c = backend.swap_store(snap, touched_rows=touched, live=live)
+        torch.cuda.synchronize()
+        refresh_s = time.perf_counter() - t
+        launched = scatter_rows.launches - before
+        rec = {"rows": int(delta.count), "ingest_s": ingest_s,
+               "refresh_s": refresh_s, "scatter_rows_launches": launched,
+               "counters": {k: c[k] for k in (
+                   "mesh_states_refreshed", "mesh_states_dropped",
+                   "mesh_shards_updated", "mesh_shards_kept",
+                   "store_shards_touched", "store_shards_total",
+                   "plans_kept", "plans_dropped")}}
+        if fits:
+            rec["touched_blocks"] = sorted(want)
+            now = [sh.data.data_ptr() for sh in
+                   backend._mesh_db[id(mesh)]["db"].shards]
+            kept_same = [a == b for a, b in zip(now, ptrs)]
+            if (c["mesh_shards_updated"] != len(want)
+                    or c["mesh_shards_kept"] != 8 - len(want)
+                    or c["mesh_states_refreshed"] != 1
+                    or launched != len(want)
+                    or kept_same != [i not in want for i in range(8)]):
+                raise AssertionError(f"serve_mesh_live_ct {label}: {rec}, "
+                                     f"identity {kept_same}")
+        elif c["mesh_states_dropped"] != 1 or launched:
+            raise AssertionError(f"serve_mesh_live_ct {label}: {rec}")
+        extra = ([int(delta.indices[0])] if delta.kind != "append"
+                 else [n + 7])
+        rec["batch_after_refresh_s"] = answer(extra)
+        rec["rebuilt"] = not fits
+        t = time.perf_counter()
+        backend.swap_store(snap, reshard="full")
+        rec["full_reshard_s"] = time.perf_counter() - t
+        # the re-shard the next batch on the mesh does, timed alone
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mesh_rules(mesh, rules):
+            backend._mesh_state()
+        torch.cuda.synchronize()
+        rec["rebuild_s"] = time.perf_counter() - t
+        rec["batch_after_full_s"] = answer(extra)
+        out[label] = rec
+    counts = read_counts()
+    for k in ("scatter_rows", "gather_xor", "indices_from_mask"):
+        if counts[k] <= 0:
+            raise AssertionError(f"serve_mesh_live_ct never launched {k}")
+    emit({"phase": "serve_mesh_live_ct", "card": card,
+          "mesh": dict(mesh.shape), "scheme": cfg.scheme, "n": n,
+          "n_after": live.n, "record_bytes": rb, "d": cfg.d, "batch": 8,
+          "shards": live.shards, "first_batch_s": first_s, "deltas": out,
+          "mesh_metrics": dict(backend.mesh_metrics),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    del backend, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def decode_mesh_smollm(dev, card, read_counts, reset_counts):
+    """Full-width SmolLM-135M (bf16, random weights from seed 0): the
+    4 x 4096-token prefill, then 32 greedy decode steps under
+    DEFAULT_RULES on a (1, 4) mesh of the card, so the KV cache's
+    sequence (4128) is split 4 ways by flash-decode, against the same 32
+    steps unsharded from a copy of the cache. Then the f32 model at 256 +
+    32 tokens: logits within 1e-3 of the unsharded decode and the same
+    greedy tokens. Returns the path's counts (prefill + mesh decode)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.dist import DEFAULT_RULES, mesh_rules
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("smollm-135m").CONFIG
+    mesh = _mesh(dev, (1, 4))
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+
+    def decode(model_, cfg_, cache, tok, start, steps, on_mesh):
+        toks, logits_all = [tok], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(steps):
+            if on_mesh:
+                with mesh_rules(mesh, DEFAULT_RULES):
+                    logits, cache = T.decode_step(model_, cfg_, cache, tok,
+                                                  start + i)
+            else:
+                logits, cache = T.decode_step(model_, cfg_, cache, tok,
+                                              start + i)
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok)
+            logits_all.append(logits)
+        torch.cuda.synchronize()
+        return (torch.cat(toks, 1), torch.stack(logits_all),
+                time.perf_counter() - t)
+
+    batch, prompt, new = 4, 4096, 32
+    tokens = torch.from_numpy(
+        lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
+    reset_counts()
+    logits, cache = T.prefill(model, cfg, tokens, prompt + new)
+    copy = T.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    tok = logits.argmax(-1, keepdim=True)
+    mesh_toks, mesh_logits, mesh_s = decode(model, cfg, cache, tok, prompt,
+                                            new, True)
+    counts = read_counts()
+    flat_toks, _, flat_s = decode(model, cfg, copy, tok, prompt, new, False)
+    if not (torch.isfinite(mesh_logits).all() and mesh_toks.min() >= 0
+            and mesh_toks.max() < cfg.vocab):
+        raise AssertionError("decode_mesh_smollm: bad logits or tokens")
+    del cache, copy, logits, mesh_logits
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = T.TransformerLM(model.tree(), cfg32).float()
+    tokens = torch.from_numpy(
+        lm_batch(cfg, 1, 256, seed=0, step=2)["tokens"]).to(dev)
+    logits, cache = T.prefill(m32, cfg32, tokens, 256 + new)
+    copy = T.KVCache(k=cache.k.clone(), v=cache.v.clone())
+    tok = logits.argmax(-1, keepdim=True)
+    toks32, logits32, _ = decode(m32, cfg32, cache, tok, 256, new, True)
+    want_toks, want32, _ = decode(m32, cfg32, copy, tok, 256, new, False)
+    err = float((logits32 - want32).abs().max())
+    if not (torch.allclose(logits32, want32, rtol=1e-3, atol=1e-3)
+            and torch.equal(toks32, want_toks)):
+        raise AssertionError(f"decode_mesh_smollm f32: max abs err {err}, "
+                             "tokens equal "
+                             f"{bool(torch.equal(toks32, want_toks))}")
+    emit({"phase": "decode_mesh_smollm", "card": card, "config": cfg.name,
+          "mesh": dict(mesh.shape), "rules": {"kv_seq": "model",
+                                              "batch": "data"},
+          "requests": batch, "prompt": prompt, "new_tokens": new,
+          "cache_len": prompt + new, "chunk": (prompt + new) // 4,
+          "decode_ms_per_token": mesh_s / new * 1e3,
+          "unsharded_decode_ms_per_token": flat_s / new * 1e3,
+          "bf16_tokens_equal_unsharded": float(
+              (mesh_toks == flat_toks).float().mean()),
+          "f32_check": {"prompt": 256, "new_tokens": new,
+                        "max_abs_err": err,
+                        "tolerance": {"rtol": 1e-3, "atol": 1e-3},
+                        "tokens_equal": True},
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    del model, m32, cache, copy
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2794,9 +3191,20 @@ def main() -> int:
         pir_ct, online, store, red, small, rng, wrappers, sync_sparse, smi,
         read_counts, reset_counts, scatter_rows))
 
+    # ------------------------------------------------ 9c the mesh
+    by_path.update(serve_mesh_ct(pir_ct, online, store, dev, rng, smi,
+                                 read_counts, reset_counts))
+    by_path["serve_mesh_parity_reduced"] = serve_mesh_parity_reduced(
+        pir_ct, red, small, dev, rng, smi, read_counts, reset_counts)
+    by_path["serve_mesh_live_ct"] = serve_mesh_live_ct(
+        pir_ct, online, store, dev, rng, Delta, VersionedStore,
+        pir_delta_batch, scatter_rows, smi, read_counts, reset_counts)
+
     # ------------------------------------ 10 the attention models: SmolLM
     by_path.update(serve_lm_smollm(dev, smi, flash_attention_fwd,
                                    read_counts, reset_counts))
+    by_path["decode_mesh_smollm"] = decode_mesh_smollm(
+        dev, smi, read_counts, reset_counts)
 
     # --------------------------------------------- 11 private BERT4Rec
     by_path["serve_private_bert4rec"] = serve_private_bert4rec(

@@ -9,6 +9,7 @@ side* operates on.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -89,6 +90,13 @@ class RecordStore:
         view of their bit-major storage: see
         :func:`packing.bitplanes_from_packed`)."""
         return packing.bitplanes_from_packed(self.packed, dtype=dtype)
+
+    # ------------------------------------------------------------- sharding
+    def shard_spec(self, record_axis: Optional[str] = "model"):
+        """Partition spec sharding the record axis; words replicated."""
+        from repro_torch.dist.sharding import P
+
+        return P(record_axis, None)
 
 
 def make_synthetic_store(

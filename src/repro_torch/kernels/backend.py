@@ -134,7 +134,8 @@ class ExecutionPlan:
     ``kernel`` the raw executor ``(operand, payload) -> [B, W]`` behind
     it, so a caller can answer against an operand of its own. Both are
     None for the direct family, whose gather the serve layer's index path
-    owns: its plan carries the decision only.
+    owns, and for a mesh plan, whose shards the serve layer answers: such
+    a plan carries the decision only.
     """
 
     path: str
@@ -165,7 +166,7 @@ class ExecutionPlan:
         if self.run is None:
             raise RuntimeError(
                 "this ExecutionPlan carries the decision only (the direct "
-                "family); the serve layer's index path owns the gather"
+                "family, or a mesh plan); the serve layer executes it"
             )
         if operand is not None:
             return self.kernel(operand, payload)
@@ -814,6 +815,7 @@ class KernelPlanner:
         self,
         scheme_plan: Any,
         bucket: int,
+        mesh_state: Optional[dict] = None,
         *,
         scheme: Any = None,
         k_max: Optional[int] = None,
@@ -822,7 +824,12 @@ class KernelPlanner:
 
         ``scheme_plan`` is the scheme's wire-level
         :class:`~repro_torch.core.protocol.Queries`; ``bucket`` the padded
-        batch size. ``scheme`` (a staged SchemeProtocol) keys the autotune
+        batch size; ``mesh_state`` the serve layer's mesh residency
+        (``{"mesh", "raxes", "n_pad", "rshards", ...}``; None off the
+        mesh): a mesh plan is sized for one record shard
+        (``n_pad // rshards`` records), carries the decision only (``run``
+        is None: the serve layer runs :func:`shard_answer_fn` on each
+        shard) and never queues its cell for the search. ``scheme`` (a staged SchemeProtocol) keys the autotune
         table and supplies ``costs(n)`` as the analytic prior; without it
         the plan keys on the wire kind alone. ``k_max`` marks a jagged
         multi-index bucket (the padded per-request column count,
@@ -831,25 +838,35 @@ class KernelPlanner:
         kind (the direct family) plans the decision-only ``direct`` path.
 
         Never measures: a table hit returns the recorded search winner, a
-        miss the analytic prior, and the cold cell is queued for
-        :meth:`tune_step`. Plans are cached per cell, ``k_max`` included.
+        miss the analytic prior, and a cold cell off the mesh is queued for
+        :meth:`tune_step`. Plans are cached per cell, ``k_max`` and the
+        mesh residency included.
         """
         kind = scheme_plan.kind
         theta = getattr(scheme_plan, "theta", None)
         scheme_name = getattr(scheme, "name", None) or f"kind:{kind}"
         costs = scheme.costs(self.store.n) if scheme is not None else None
+        on_mesh = mesh_state is not None
+        mesh_key = (
+            (id(mesh_state["mesh"]), mesh_state["raxes"]) if on_mesh else None
+        )
         impl = self.backend.resolve(self.store.device)
         if k_max is not None and (k_max < 1 or bucket % k_max):
             raise ValueError(
                 f"multi bucket {bucket} not a multiple of k_max={k_max}"
             )
 
-        cache_key = (scheme_name, kind, theta, int(bucket), impl, k_max)
+        cache_key = (
+            scheme_name, kind, theta, int(bucket), impl, mesh_key, k_max
+        )
         cached = self._plans.get(cache_key)
         if cached is not None:
             return cached
 
-        n_eff = self.store.n
+        n_eff = (
+            mesh_state["n_pad"] // mesh_state["rshards"]
+            if on_mesh else self.store.n
+        )
         blocks: Dict[str, Any] = {}
         m_budget = None
         chosen_impl = impl
@@ -891,13 +908,14 @@ class KernelPlanner:
                 else:
                     path, chosen_impl, blocks = self._prior(cell)
                     source = "only" if sparse and impl == "ref" else "model"
-                    if source == "model":
+                    if not on_mesh and source == "model":
                         self._note_pending(key, cell)
 
         # the direct family's gather has one physical form, owned by the
-        # serve layer's index path: its plan is decision-only
+        # serve layer's index path: its plan is decision-only, like every
+        # mesh plan
         run = kernel = None
-        if path != "direct":
+        if not on_mesh and path != "direct":
             kernel = _path_answer_fn(path, chosen_impl, m_budget, blocks)
             run = self._build_run(path, kernel)
         self.metrics["plans_built"] += 1
@@ -940,8 +958,8 @@ class KernelPlanner:
 
     # ------------------------------------------------------------ swaps
     def invalidate(self) -> None:
-        """Drop every cached plan; the autotune table survives —
-        measurements key on shapes."""
+        """Drop every cached plan (the mesh changed); the autotune table
+        survives — measurements key on shapes, not residency."""
         with self._lock:
             self.metrics["plans_dropped"] += len(self._plans)
             self._plans.clear()

@@ -267,15 +267,20 @@ def decode_attention(
     attn_softcap: float = 0.0,
     kv_seq_axes: tuple = (),
 ) -> torch.Tensor:
-    """One-token decode against a KV cache: a plain masked softmax over the
-    whole cache, on either device (the reference's single-device branch;
-    it has no Pallas kernel). The sequence-parallel flash-decode the
-    reference takes when ``kv_seq_axes`` names mesh axes is not ported
-    (ROADMAP.md Queue A item 11)."""
+    """One-token decode against a (possibly sequence-sharded) KV cache.
+
+    When ``kv_seq_axes`` names mesh axes, runs the flash-decode combine
+    (:func:`repro_torch.dist.flash_decode.flash_decode`: each cache chunk's
+    (max, sum-of-exp, weighted-V) triple, summed across the chunks; it
+    comes back here when no mesh shards the cache). Otherwise a plain
+    masked softmax over the whole cache, on either device (the reference
+    has no Pallas kernel for it)."""
     if kv_seq_axes:
-        raise NotImplementedError(
-            "flash_decode over a sequence-sharded cache is not ported: "
-            "ROADMAP.md Queue A item 11"
+        from repro_torch.dist.flash_decode import flash_decode  # no cycle
+
+        return flash_decode(
+            q, k_cache, v_cache, length,
+            axis_names=kv_seq_axes, window=window, attn_softcap=attn_softcap,
         )
     b, _, hq, dh = q.shape
     hkv = k_cache.shape[2]

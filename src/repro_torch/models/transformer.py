@@ -29,6 +29,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import LMConfig
 from repro_torch.dist.collectives import sharded_vocab_lookup
+from repro_torch.dist.sharding import mesh_axis_names
 from repro_torch.models import layers as L
 
 __all__ = ["KVCache", "TransformerLM", "init_lm", "prefill", "decode_step"]
@@ -197,7 +198,8 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token, pos):
     The new position's K/V are written into ``cache`` **in place** (the
     serving idiom: no copy of the whole cache per token) and the same
     cache is returned; its values equal the reference's functional
-    update."""
+    update. The cache's sequence is split over mesh axes by flash-decode
+    when ``rules["kv_seq"]`` maps to axes of the active mesh."""
     _dense_only(cfg)
     tree = L.as_tree(params)
     embed = tree["embed"]
@@ -209,6 +211,7 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token, pos):
         raise ValueError(f"pos {pos} outside a cache of {cache.k.shape[2]}")
     x = _embed_tokens(embed, cfg, token)
     windows = _layer_windows(cfg)
+    kv_axes = mesh_axis_names("kv_seq")
     positions = torch.full((b, 1), pos, device=dev)
     for i in range(cfg.n_layers):
         p = _layer(tree["layers"], i)
@@ -221,7 +224,7 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token, pos):
         vc[:, pos] = v[:, 0].to(vc.dtype)
         out = L.decode_attention(
             q, kc, vc, pos + 1, window=int(windows[i]),
-            attn_softcap=cfg.attn_softcap,
+            attn_softcap=cfg.attn_softcap, kv_seq_axes=kv_axes,
         )
         x = x + L.dense(p["wo"], out.reshape(b, 1, -1))
         y2 = L.rmsnorm(p["ln2"], x)

@@ -1370,3 +1370,126 @@ def test_degrade_replicas_on_the_card_keeps_serving_exactly(cuda_device):
         np.testing.assert_array_equal(out[f"c{i}"],
                                       pipe.store.record_bytes(q))
     assert gather_xor.launches + fused_gather_fold.launches - before == 3
+
+
+# ------------------------------------------------------------- the mesh
+def _card_mesh(cuda_device):
+    from repro_torch.dist import make_mesh
+
+    return make_mesh((2, 4), ("data", "model"), [cuda_device])
+
+
+MESH_RULES = {"records": ("data", "model"), "queries": None}
+
+
+@pytest.mark.parametrize("scheme,parity_min_batch,kernels", [
+    ("chor", None, (xor_fold,)),
+    ("chor", 8, (parity_matmul_packed,)),
+    ("sparse", None, (fused_gather_fold, indices_from_mask)),
+])
+def test_each_shard_kernel_launches_on_a_mesh_of_the_card(
+        cuda_device, scheme, parity_min_batch, kernels):
+    """The reduced CT store over a (2, 4) mesh of the card: each server's
+    answer launches its kernel once per position (8 a server), and the
+    records equal the stored ones."""
+    from repro_torch.configs import pir_ct
+    from repro_torch.dist import DEFAULT_RULES, mesh_rules
+    from repro_torch.serve import ShardedBackend
+
+    cfg = dataclasses.replace(pir_ct.reduced(), scheme=scheme)
+    store = make_synthetic_store(cfg.n_records, cfg.record_bytes, seed=0,
+                                 device=cuda_device)
+    pipe = pir_ct.make_serving_pipeline(
+        cfg, store=store, seed=4, backend=ShardedBackend(
+            store, parity_min_batch=parity_min_batch, device=cuda_device))
+    picks = [0, 7, 2047, 1000, 3, 5, 9, 11]
+    for i, q in enumerate(picks):
+        assert pipe.submit(f"c{i}", q)
+    before = [k.launches for k in kernels]
+    mesh = _card_mesh(cuda_device)
+    with mesh_rules(mesh, dict(DEFAULT_RULES, **MESH_RULES)):
+        out = pipe.flush()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [
+        8 * cfg.d] * len(kernels)
+    for i, q in enumerate(picks):
+        np.testing.assert_array_equal(out[f"c{i}"], store.record_bytes(q))
+    state = pipe.backend._mesh_db[id(mesh)]
+    assert all(sh.device.type == "cuda" for sh in state["db"].shards)
+    if parity_min_batch:
+        assert all(sh.data.stride(0) == 1 for sh in state["planes"].shards)
+
+
+def test_a_touched_shard_refresh_launches_scatter_rows_on_the_card(
+        cuda_device):
+    from repro_torch.core import make_scheme
+    from repro_torch.db import Delta, VersionedStore
+    from repro_torch.dist import DEFAULT_RULES, mesh_rules
+    from repro_torch.serve import SchemeRouter, ShardedBackend
+
+    live = VersionedStore(make_synthetic_store(1024, 64, seed=2,
+                                               device=cuda_device), shards=8)
+    backend = ShardedBackend(live.snapshot(), device=cuda_device)
+    router = SchemeRouter(make_scheme("chor", d=2, d_a=1))
+    mesh = _card_mesh(cuda_device)
+    rules = dict(DEFAULT_RULES, **MESH_RULES)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def answer(q):
+        tq = router.plan(gen, live.n, torch.tensor(q, device=cuda_device))
+        with mesh_rules(mesh, rules):
+            return router.finalize(tq, backend.answer_batch(tq))
+
+    answer([0, 1])
+    ptrs = [sh.data.data_ptr() for sh in backend._mesh_db[id(mesh)]["db"].shards]
+    delta = Delta.update([3, 300], np.full((2, 64), 5, np.uint8))
+    touched = live.touched_rows(delta, n_before=live.n)
+    live.ingest(delta)
+    before = scatter_rows.launches
+    counters = backend.swap_store(live.snapshot(), touched_rows=touched,
+                                  live=live)
+    assert scatter_rows.launches - before == 2
+    assert (counters["mesh_shards_updated"], counters["mesh_shards_kept"]) \
+        == (2, 6)
+    now = [sh.data.data_ptr() for sh in backend._mesh_db[id(mesh)]["db"].shards]
+    assert [a == b for a, b in zip(now, ptrs)] == [
+        False, True, False, True, True, True, True, True]
+    got = answer([3, 300, 4])
+    assert torch.equal(got, live.snapshot().packed[[3, 300, 4]])
+
+
+def test_an_answer_on_the_mesh_never_synchronizes_the_whole_device(
+        cuda_device, monkeypatch):
+    from repro_torch.configs import pir_ct
+    from repro_torch.dist import DEFAULT_RULES, mesh_rules
+
+    calls = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: (calls.append(a), real(*a, **k)))
+    pipe = pir_ct.make_serving_pipeline(pir_ct.reduced(), seed=2)
+    for i in range(8):
+        assert pipe.submit(f"c{i}", 5 * i)
+    with mesh_rules(_card_mesh(cuda_device), dict(DEFAULT_RULES,
+                                                  **MESH_RULES)):
+        out = pipe.flush()
+    assert calls == []
+    for i in range(8):
+        np.testing.assert_array_equal(out[f"c{i}"],
+                                      pipe.store.record_bytes(5 * i))
+
+
+def test_flash_decode_on_a_mesh_of_the_card_matches_the_dense_decode(
+        cuda_device):
+    from repro_torch.dist import DEFAULT_RULES, make_mesh, mesh_rules
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(4, 1, 8, 64, device=cuda_device, generator=g)
+    k = torch.randn(4, 64, 2, 64, device=cuda_device, generator=g)
+    v = torch.randn(4, 64, 2, 64, device=cuda_device, generator=g)
+    dense = L.decode_attention(q, k, v, 41, window=30)
+    with mesh_rules(make_mesh((1, 4), ("data", "model"), [cuda_device]),
+                    DEFAULT_RULES):
+        got = L.decode_attention(q, k, v, 41, window=30,
+                                 kv_seq_axes=("model",))
+    torch.testing.assert_close(got, dense, rtol=2e-5, atol=2e-5)

@@ -270,9 +270,11 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported(
                  lambda: T.prefill(model, moe, tokens, 16)):
         with pytest.raises(NotImplementedError, match="Queue A item 13"):
             call()
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        L.decode_attention(torch.zeros(1, 1, 2, 8), torch.zeros(1, 4, 2, 8),
-                           torch.zeros(1, 4, 2, 8), 2, kv_seq_axes=("data",))
+    # kv_seq_axes with no mesh active: the dense result, exactly
+    q, k, v = (_t(_rand(s, 30 + i)) for i, s in enumerate(
+        ((1, 1, 2, 8), (1, 4, 2, 8), (1, 4, 2, 8))))
+    assert torch.equal(L.decode_attention(q, k, v, 2, kv_seq_axes=("data",)),
+                       L.decode_attention(q, k, v, 2))
     # the reference clamps an out-of-range decode position; the port refuses it
     _, cache = T.prefill(model, cfg, tokens, 16)
     with pytest.raises(ValueError, match="outside"):
