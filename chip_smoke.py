@@ -24,14 +24,24 @@ cut to 65 536 and at the full 10^6 (phase ``crossover``). Then the
 attention models at full width: SmolLM-135M serving (prefill and
 greedy decode of 4 x 4096 tokens, one 32 768-token prefill, the f32 model
 on the card against the CPU) and BERT4Rec scoring 32 users whose item
-histories are fetched by Sparse-PIR. Builds the CUDA kernels from the
+histories are fetched by Sparse-PIR; then the rest of the LM family at
+full width, one model at a time, each from a collected heap: gemma-2 2B
+(2 x 8192 tokens; its logit softcap and local window in
+``flash_attention.cu`` at head dim 256; the f32 model on the card against
+the CPU), Mistral-NeMo 12B (4 x 4096 tokens, wgmma at head dim 128),
+Moonlight 16B-A3B (48 MoE layers of 64 experts, 1 x 4096 tokens, the
+dropped assignments a layer; ``reduced()`` routed alike on the card and
+the CPU), one layer of Kimi-K2 (384 experts, 33.8 GB) and one Moonlight
+MoE block on the (2, 4) mesh of the card, its experts views of the global
+weights. Builds the CUDA kernels from the
 nine sources in this tree (flash attention has two: bf16 at head dims 64
 and 128 on wgmma, everything else on the TF32 tensor cores through
 mma.sync in three passes; the Sparse-PIR index compaction in front of the
 gather has one), holds each against its
 plain PyTorch version on the card (bit for bit for the six GF(2) kernels
 and the compaction, PIR is exact; within the reference's float tolerance
-for flash attention), times them with CUDA events (the gather at batches
+for flash attention, with and without the softcap and the query offset),
+times them with CUDA events (the gather at batches
 of 8, 32 and 1, on ascending ids and on shuffled ones; the fused gathers
 at batches of 8 and 32 in both grid orders and both staging paths, with
 the card's own time from torch.profiler), and checks that
@@ -47,9 +57,11 @@ when there is no device. Imports only ``repro_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -74,6 +86,11 @@ F32_FLOPS_PER_S = 67e12    # outside the tensor cores
 # (2^-8 to 2^-7 of the value) plus f32 noise
 FLASH_TOL = {torch.float32: {"rtol": 1e-5, "atol": 1e-5},
              torch.bfloat16: {"rtol": 8e-3, "atol": 1e-3}}
+# flex_attention (the capped sets' library call) against the plain version
+# in bf16: it rounds P to bf16 before P V, as SDPA does and the kernels do
+# not (they carry P's rounding error in a second term), so a few bf16 ulps
+# of the output; a wrong mask moves rows by far more
+FLEX_TOL = {"rtol": 2e-2, "atol": 2e-2}
 
 CSRC = "src/repro_torch/kernels/csrc/"
 
@@ -533,24 +550,29 @@ def fused_forms(kernel, launch, schedule, stagings, db, idx, offsets,
     return forms
 
 
-def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """Unmasked (query, key) pairs of one attention row (positions from 0)."""
-    qpos = np.arange(sq, dtype=np.int64)
+def attention_pairs(sq: int, sk: int, causal: bool, window,
+                    q_offset: int = 0) -> int:
+    """Unmasked (query, key) pairs of one attention row (keys from 0,
+    queries from ``q_offset``)."""
+    qpos = np.arange(sq, dtype=np.int64) + q_offset
     hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk, np.int64)
     lo = (np.clip(qpos - window + 1, 0, sk) if window is not None
           else np.zeros(sq, np.int64))
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def flash_bound(bh, sq, sk, d, causal, window, dtype, peak=None, passes=1):
+def flash_bound(bh, sq, sk, d, causal, window, dtype, peak=None, passes=1,
+                q_offset=0):
     """The larger of ``passes`` × 4·d flops per unmasked pair over ``peak``
     (by default the type's: bf16 tensor cores, float32 outside them) and
-    the Q/K/V/O bytes over the memory rate."""
+    the Q/K/V/O bytes over the memory rate. A softcap's tanh a pair is not
+    counted: it runs outside the tensor cores, and the bound stays the
+    products'."""
     elem = 2 if dtype == torch.bfloat16 else 4
     if peak is None:
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    ops_s = (passes * 4.0 * bh * attention_pairs(sq, sk, causal, window) * d
-             / peak)
+    ops_s = (passes * 4.0 * bh
+             * attention_pairs(sq, sk, causal, window, q_offset) * d / peak)
     bytes_s = bh * (2 * sq + 2 * sk) * d * elem / HBM_BYTES_PER_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s > bytes_s else "bytes")
@@ -1799,36 +1821,40 @@ def async_and_fleet(pir_ct, online, store, red, small, rng, wrappers,
 
 def check_flash(label, bh, sq, d, dtype, causal, window, dev,
                 flash_attention_fwd, flash_attention_plain, plain_rows=None,
-                iters=10, device_runs=0):
-    """The flash kernel at one operand set against its plain version
-    (``FLASH_TOL``; bf16 operands once more cast to f32, held at 1e-5, so
-    the tile loop and its skips are checked without the output's
-    rounding), timed beside the plain version and PyTorch's
-    scaled_dot_product_attention on the same operands; with
-    ``device_runs``, the card's time of one call of each (torch.profiler,
-    10 calls a run) in that many runs."""
+                iters=10, device_runs=0, sk=None, softcap=0.0, q_offset=0):
+    """The flash kernel at one operand set (``sk`` keys, default ``sq``;
+    a softcap and a query offset as the wrapper takes them) against its
+    plain version (``FLASH_TOL``; bf16 operands once more cast to f32,
+    held at 1e-5, so the tile loop and its skips are checked without the
+    output's rounding), timed beside the plain version and one PyTorch
+    call of the same function: scaled_dot_product_attention, or with a
+    softcap flex_attention (``flex_library``; held to ``FLEX_TOL``
+    against the plain version too, and SDPA without the cap timed beside
+    it for scale); with ``device_runs``, the card's time of one call of
+    each (torch.profiler, 10 calls a run) in that many runs."""
     import torch.nn.functional as F
 
+    sk = sq if sk is None else sk
     g = torch.Generator(device=dev).manual_seed(sq + d)
-    q, k, v = (torch.randn((bh, sq, d), generator=g, device=dev).to(dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=dev).to(dtype)
+               for s in (sq, sk, sk))
     rows = slice(0, plain_rows or bh)
+    kw = {"causal": causal, "window": window}
+    if softcap or q_offset:  # the capless sets call as before
+        kw.update(softcap=softcap, q_offset=q_offset)
 
     def kernel():
-        return flash_attention_fwd(q, k, v, causal=causal, window=window)
+        return flash_attention_fwd(q, k, v, **kw)
 
     def plain():
-        return flash_attention_plain(q[rows], k[rows], v[rows], causal=causal,
-                                     window=window)
+        return flash_attention_plain(q[rows], k[rows], v[rows], **kw)
 
     def held(q_, k_, v_, tol):
         before = dict(flash_attention_fwd.kernel_launches)
-        got = flash_attention_fwd(q_, k_, v_, causal=causal,
-                                  window=window)[rows]
+        got = flash_attention_fwd(q_, k_, v_, **kw)[rows]
         ran = [n for n, c in flash_attention_fwd.kernel_launches.items()
                if c != before[n]]
-        want = flash_attention_plain(q_[rows], k_[rows], v_[rows],
-                                     causal=causal, window=window)
+        want = flash_attention_plain(q_[rows], k_[rows], v_[rows], **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         if not torch.allclose(got.float(), want.float(), **tol):
@@ -1852,51 +1878,114 @@ def check_flash(label, bh, sq, d, dtype, causal, window, dev,
         f32_err, f32_kernel = held(*(t.float() for t in (q, k, v)), f32_tol)
         f32_check = {"max_abs_err": f32_err, "tolerance": f32_tol,
                      "kernel": f32_kernel}
-    # the same function as one PyTorch call: causal without a window as
-    # is_causal, a window as a boolean band mask
+    # the same function as one PyTorch call: causal without a window or an
+    # offset as is_causal, else the mask as a boolean band
     q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
     band = None
-    if window is not None:
-        qpos = torch.arange(sq, device=dev)[:, None]
-        kpos = torch.arange(sq, device=dev)[None, :]
-        band = (kpos <= qpos) & (kpos > qpos - window)
+    if window is not None or q_offset:
+        qpos = torch.arange(sq, device=dev)[:, None] + q_offset
+        kpos = torch.arange(sk, device=dev)[None, :]
+        band = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+        if causal:
+            band &= kpos <= qpos
+        if window is not None:
+            band &= kpos > qpos - window
 
-    def library():
+    def sdpa():
         if band is not None:
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=band)
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
 
+    library, library_name, flex = sdpa, "scaled_dot_product_attention" + (
+        " (band mask)" if band is not None else ""), None
+    if softcap:
+        library, library_name = flex_library(q4, k4, v4, causal, window,
+                                             softcap, q_offset)
+        got = library()[0, rows]
+        want = flash_attention_plain(q[rows], k[rows], v[rows], **kw)
+        flex_err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), **FLEX_TOL):
+            raise AssertionError(
+                f"{library_name} {label}: differs from the plain version "
+                f"(max abs err {flex_err}, {FLEX_TOL})")
+        flex = {"max_abs_err": flex_err, "tolerance": FLEX_TOL}
+
     device = (device_runs_ms(kernel, library, kernel_name, device_runs)
               if device_runs else {})
-    bound_ms, bound_by = flash_bound(bh, sq, sq, d, causal, window, dtype)
+    bound_ms, bound_by = flash_bound(bh, sq, sk, d, causal, window, dtype,
+                                     q_offset=q_offset)
     # the same work's flops at the bf16 tensor-core peak, whatever the
     # operands' type: below bound_ms where the operands are f32
-    bf16_peak_ms, bf16_peak_by = flash_bound(bh, sq, sq, d, causal, window,
-                                             dtype, peak=BF16_FLOPS_PER_S)
+    bf16_peak_ms, bf16_peak_by = flash_bound(
+        bh, sq, sk, d, causal, window, dtype, peak=BF16_FLOPS_PER_S,
+        q_offset=q_offset)
     extra = {}
     if dtype == torch.float32:
         # what flash_attention.cu runs: three TF32 passes (3xTF32) a product
         extra["bound_at_3xtf32_ms"], extra["bound_at_3xtf32_by"] = (
-            flash_bound(bh, sq, sq, d, causal, window, dtype,
-                        peak=TF32_FLOPS_PER_S, passes=3))
+            flash_bound(bh, sq, sk, d, causal, window, dtype,
+                        peak=TF32_FLOPS_PER_S, passes=3, q_offset=q_offset))
+    # timed in the order they always were: kernel, plain, library
+    ms = time_ms(kernel, iters=iters)
+    plain_ms = time_ms(plain, warmup=1, iters=2)
+    library_ms = time_ms(library, iters=iters)
+    if softcap:
+        extra["library_against_plain"] = flex
+        extra["sdpa_without_cap_ms"] = time_ms(sdpa, iters=iters)
     return {
         "label": label,
-        "shape": {"bh": bh, "sq": sq, "sk": sq, "d": d,
+        "shape": {"bh": bh, "sq": sq, "sk": sk, "d": d,
                   "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-                  "window": window, "plain_rows": plain_rows or bh},
+                  "window": window, "softcap": softcap, "q_offset": q_offset,
+                  "plain_rows": plain_rows or bh},
         "kernel": kernel_name, "source": CSRC + FLASH_SOURCES[kernel_name],
         "max_abs_err": err, "tolerance": tol,
         "same_operands_in_f32": f32_check,
-        "ms": time_ms(kernel, iters=iters),
-        "plain_ms": time_ms(plain, warmup=1, iters=2),
+        "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_at_bf16_peak_ms": bf16_peak_ms,
         "bound_at_bf16_peak_by": bf16_peak_by, **extra,
-        "library_ms": time_ms(library, iters=iters),
-        "library": ("scaled_dot_product_attention"
-                    + (" (band mask)" if band is not None else "")),
+        "library_ms": library_ms, "library": library_name,
         **device,
     }
+
+
+def flex_library(q4, k4, v4, causal, window, softcap, q_offset,
+                 compile=True):
+    """Capped attention as one PyTorch call: flex_attention (compiled, or
+    eager with ``compile=False``; its score_mod gets the score already
+    scaled by 1/sqrt(d), as the kernels' cap does) with s -> cap *
+    tanh(s / cap), and the causal and window masks by absolute position
+    as a block mask, applied after the cap. Returns the call and its
+    name."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def cap(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    def visible(b, h, qi, ki):
+        qpos = qi + q_offset
+        ok = ki <= qpos if causal else ki >= 0
+        if window is not None:
+            ok = ok & (ki > qpos - window)
+        return ok
+
+    mask = None
+    if causal or window is not None:
+        mask = create_block_mask(visible, None, None, q4.shape[2],
+                                 k4.shape[2], device=q4.device)
+    flex = flex_attention
+    if compile:
+        # inductor's and triton's caches in the checkout's ignored build/
+        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                         ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(ROOT / "build" / sub))
+        flex = torch.compile(flex_attention, dynamic=False)
+    return (lambda: flex(q4, k4, v4, score_mod=cap, block_mask=mask),
+            "flex_attention (" + ("torch.compile; " if compile else "")
+            + "score_mod cap*tanh(s/cap)"
+            + (", block mask" if mask is not None else "") + ")")
 
 
 def serve_lm_smollm(dev, card, flash, read_counts, reset_counts):
@@ -2505,6 +2594,523 @@ def decode_mesh_smollm(dev, card, read_counts, reset_counts):
     return counts
 
 
+# ------------------------------------------------- the rest of the LM family
+LM_GROUPS = {"flash": ["flash_fwd_kernel", "flash_wgmma_kernel"],
+             "matmul": ["gemm", "Gemm", "nvjet", "cutlass", "xmma"]}
+
+
+def lm_phase_start():
+    """A large model phase starts from a collected heap: what earlier
+    phases left to the collector would sit under its peak. Returns the
+    memory allocated at its start."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def lm_phase_end():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def watch_attention():
+    """Within the block: the (window, softcap, q_offset) of each flash
+    call that ``gqa_attention`` makes, and the calls of the plain
+    attention paths (``_attn_core``, ``flash_attention_plain``), which a
+    model on the card must never make."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    seen = {"flash_calls": [], "plain_calls": 0}
+    real = (L.flash_attention_fwd, FA.flash_attention_plain, L._attn_core)
+
+    def fwd(*args, **kw):
+        seen["flash_calls"].append(
+            [kw.get("window"), kw.get("softcap"), kw.get("q_offset")])
+        return real[0](*args, **kw)
+
+    def plain(*args, **kw):
+        seen["plain_calls"] += 1
+        return real[1](*args, **kw)
+
+    def core(*args, **kw):
+        seen["plain_calls"] += 1
+        return real[2](*args, **kw)
+
+    L.flash_attention_fwd, FA.flash_attention_plain, L._attn_core = (
+        fwd, plain, core)
+    try:
+        yield seen
+    finally:
+        L.flash_attention_fwd, FA.flash_attention_plain, L._attn_core = real
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Within the block: each MoE block's routing (``moe.Routing``: the
+    top-k expert ids, which assignments are kept), in call order; on a
+    mesh, one a position."""
+    from repro_torch.models import moe as M
+
+    seen = []
+    real = M.moe_route
+
+    def route(*args, **kw):
+        r = real(*args, **kw)
+        seen.append(r)
+        return r
+
+    M.moe_route = route
+    try:
+        yield seen
+    finally:
+        M.moe_route = real
+
+
+def _first_layers(tree, n):
+    if isinstance(tree, torch.Tensor):
+        return tree[:n]
+    return {k: _first_layers(v, n) for k, v in tree.items()}
+
+
+def run_lm(label, model, cfg, tokens, new, flash, kernel, read_counts,
+           reset_counts):
+    """``prefill`` then ``new`` greedy ``decode_step``s of ``model``,
+    its counts set to 0 before and read after, every prefill layer held
+    to one launch of ``kernel`` and no plain attention. Returns the
+    phase's measurements, the path's counts, the cache and the last
+    tokens."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    b, prompt = tokens.shape
+    reset_counts()
+    torch.cuda.synchronize()
+    with watch_attention() as seen, record_routing() as routes:
+        t = time.perf_counter()
+        logits, cache = T.prefill(model, cfg, tokens, prompt + new)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        prefill_counts = read_counts()
+        prefill_blocks = len(routes)
+        tok = logits.argmax(-1, keepdim=True)
+        out = [tok]
+        t = time.perf_counter()
+        for i in range(new):
+            logits, cache = T.decode_step(model, cfg, cache, tok, prompt + i)
+            tok = logits.argmax(-1, keepdim=True)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+    counts = read_counts()
+    by_kernel = {n: prefill_counts[n] for n in FLASH_SOURCES}
+    want = {n: cfg.n_layers * (n == kernel) for n in FLASH_SOURCES}
+    if by_kernel != want or counts["flash_attention_fwd"] != cfg.n_layers:
+        raise AssertionError(f"{label}: flash launches {by_kernel} in the "
+                             f"prefill, {counts['flash_attention_fwd']} in "
+                             f"all, expected {want}")
+    if seen["plain_calls"]:
+        raise AssertionError(f"{label}: {seen['plain_calls']} calls of a "
+                             "plain attention path on the card")
+    generated = torch.cat(out, dim=1)
+    if not (torch.isfinite(logits).all() and generated.min() >= 0
+            and generated.max() < cfg.vocab
+            and generated.shape == (b, new + 1)):
+        raise AssertionError(f"{label}: bad logits or tokens")
+    line = {
+        "config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+        "requests": b, "prompt": prompt, "new_tokens": new,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": b * prompt / prefill_s,
+        "decode_ms_per_token": decode_s / new * 1e3,
+        "decode_tokens_per_s": b * new / decode_s,
+        "flash_kernel_launches_per_prefill": by_kernel,
+        "flash_calls_per_prefill": seen["flash_calls"][:cfg.n_layers],
+        "plain_attention_calls": seen["plain_calls"],
+        "launches": {k: v for k, v in counts.items() if v},
+    }
+    if cfg.moe:
+        per_layer = torch.stack([torch.stack([r.keep.sum(), (~r.keep).sum()])
+                                 for r in routes]).tolist()
+        line["moe"] = {
+            "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "capacity_prefill": M.moe_capacity(b * prompt, cfg.n_experts,
+                                               cfg.top_k,
+                                               cfg.capacity_factor),
+            "capacity_decode": M.moe_capacity(b, cfg.n_experts, cfg.top_k,
+                                              cfg.capacity_factor),
+            "kept_dropped_per_prefill_layer": per_layer[:prefill_blocks],
+            "dropped_in_decode": sum(d for _, d in per_layer[prefill_blocks:]),
+        }
+    return line, counts, cache, tok
+
+
+def lm_split(model, cfg, tokens, cache, tok, max_len):
+    """Where the card's time goes: one more prefill, and one decode step
+    that rewrites the last position (after the path's counts are read)."""
+    from repro_torch.models import transformer as T
+
+    return {
+        "split_prefill": device_split(
+            lambda: T.prefill(model, cfg, tokens, max_len), LM_GROUPS),
+        "split_decode_step": device_split(
+            lambda: T.decode_step(model, cfg, cache, tok, max_len - 1),
+            LM_GROUPS),
+    }
+
+
+def card_vs_cpu(label, model, cfg, tokens, kernel, read_counts,
+                reset_counts, routing=False):
+    """The f32 model on the card (the flash kernel) against the same
+    weights on the CPU (the plain path): logits within rtol = atol = 1e-3,
+    argmax equal, and with ``routing`` the same experts in every MoE
+    block."""
+    from repro_torch.models import transformer as T
+
+    host = T.TransformerLM(model.tree(), cfg).to("cpu")
+    reset_counts()
+    with record_routing() as card_routes:
+        got, _ = T.prefill(model, cfg, tokens, tokens.shape[1])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts[kernel] != cfg.n_layers:
+        raise AssertionError(f"{label}: the f32 prefill's flash launches are "
+                             f"{counts}, expected {cfg.n_layers} on {kernel}")
+    with record_routing() as host_routes:
+        want, _ = T.prefill(host, cfg, tokens, tokens.shape[1])
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    same_routes = (len(card_routes) == len(host_routes) and all(
+        torch.equal(a.top_e.cpu(), b.top_e)
+        for a, b in zip(card_routes, host_routes)))
+    if (not torch.allclose(got, want, rtol=1e-3, atol=1e-3)
+            or not same_argmax or (routing and not same_routes)):
+        raise AssertionError(f"{label}: card vs CPU max abs err {err}, "
+                             f"argmax equal {same_argmax}, routing equal "
+                             f"{same_routes}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "tokens": list(tokens.shape), "max_abs_err": err,
+           "tolerance": {"rtol": 1e-3, "atol": 1e-3},
+           "argmax_equal": same_argmax,
+           "top2_margin": float((top2[:, 0] - top2[:, 1]).min()),
+           "flash_kernel_launches": {n: counts[n] for n in FLASH_SOURCES}}
+    if routing:
+        out["routing_equal"] = same_routes
+        out["moe_blocks"] = len(card_routes)
+    del host
+    return out
+
+
+def serve_lm_gemma2(dev, card, flash, read_counts, reset_counts):
+    """Full-width gemma-2 2B (26 layers, bf16, random weights from seed 0):
+    2 requests of 8192 tokens and 32 greedy tokens each; every prefill
+    layer on ``flash_attention.cu`` (head dim 256) with cap 50, the even
+    layers with the 4096-token window. Then the f32 model, card against
+    CPU: full width cut to 2 layers (one local, one global) at 1 x 512
+    tokens, and ``reduced()`` (window 8, so it masks; the caps) at 1 x 64.
+    Returns the path's counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    arch = get_arch("gemma2-2b")
+    cfg = arch.CONFIG
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - start
+    init_s = time.perf_counter() - t_phase
+    batch, prompt, new = 2, 8192, 32
+    tokens = torch.from_numpy(
+        lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
+    line, counts, cache, tok = run_lm(
+        "serve_lm_gemma2", model, cfg, tokens, new, flash, "flash_fwd_kernel",
+        read_counts, reset_counts)
+    windowed = sum(1 for w, cap, _ in line["flash_calls_per_prefill"]
+                   if w < prompt)
+    capped = sum(1 for _, cap, _ in line["flash_calls_per_prefill"]
+                 if cap == cfg.attn_softcap)
+    if windowed != cfg.n_layers // 2 or capped != cfg.n_layers:
+        raise AssertionError(f"serve_lm_gemma2: {windowed} windowed and "
+                             f"{capped} capped flash calls a prefill")
+    peak = torch.cuda.max_memory_allocated()
+    line.update(lm_split(model, cfg, tokens, cache, tok, prompt + new))
+    del cache
+    line.update({
+        "phase": "serve_lm_gemma2", "card": card, "init_s": init_s,
+        "memory_at_start": start, "weights_bytes": weights,
+        "max_memory_allocated": peak,
+        "windowed_flash_calls": windowed, "capped_flash_calls": capped,
+    })
+
+    # the f32 checks: the first two layers at full width, then reduced()
+    tree = model.tree()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    two = T.TransformerLM({"embed": tree["embed"],
+                           "layers": _first_layers(tree["layers"], 2),
+                           "final_norm": tree["final_norm"]}, cfg2).float()
+    del model, tree
+    lm_phase_end()
+    line["f32_card_vs_cpu_full_width_2_layers"] = card_vs_cpu(
+        "serve_lm_gemma2 f32 (2 layers)", two, cfg2,
+        lm_batch(cfg2, 1, 512, seed=0, step=2)["tokens"], "flash_fwd_kernel",
+        read_counts, reset_counts)
+    del two
+    red = arch.reduced()
+    small = T.init_lm(torch.Generator(device=dev).manual_seed(1), red,
+                      device=dev)
+    line["f32_card_vs_cpu_reduced"] = card_vs_cpu(
+        "serve_lm_gemma2 f32 (reduced)", small, red,
+        lm_batch(red, 1, 64, seed=0, step=3)["tokens"], "flash_fwd_kernel",
+        read_counts, reset_counts)
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    del small
+    lm_phase_end()
+    # the path's flash_fwd_kernel launches split by the call's window (one
+    # launch a call, checked in run_lm): sets (g) and (g') read these
+    return dict(counts, **{
+        "flash_fwd_kernel:global": cfg.n_layers - windowed,
+        f"flash_fwd_kernel:window_{cfg.window}": windowed})
+
+
+def serve_lm_mistral_nemo(dev, card, flash, read_counts, reset_counts):
+    """Full-width Mistral-NeMo 12B (40 layers, d 5120, 32/8 heads, head dim
+    128, bf16, 23.2 GB, random weights from seed 0): 4 requests of 4096
+    tokens (``train_4k``'s length) and 16 greedy tokens each; every
+    prefill layer on the wgmma kernel at d 128. Returns the path's
+    counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    cfg = get_arch("mistral-nemo-12b").CONFIG
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - start
+    init_s = time.perf_counter() - t_phase
+    batch, prompt, new = 4, 4096, 16
+    tokens = torch.from_numpy(
+        lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
+    line, counts, cache, tok = run_lm(
+        "serve_lm_mistral_nemo", model, cfg, tokens, new, flash,
+        "flash_wgmma_kernel", read_counts, reset_counts)
+    peak = torch.cuda.max_memory_allocated()
+    line.update(lm_split(model, cfg, tokens, cache, tok, prompt + new))
+    line.update({"phase": "serve_lm_mistral_nemo", "card": card,
+                 "init_s": init_s, "memory_at_start": start,
+                 "weights_bytes": weights, "max_memory_allocated": peak,
+                 "seconds": time.perf_counter() - t_phase})
+    emit(line)
+    del model, cache
+    lm_phase_end()
+    return counts
+
+
+def serve_lm_moonshot(dev, card, flash, read_counts, reset_counts):
+    """Full-width Moonlight 16B-A3B (48 layers, 64 experts, top 6, expert
+    d_ff 1408, bf16, 55.4 GB, random weights from seed 0): 1 request of
+    4096 tokens and 16 greedy tokens (capacity 480 a prefill, 8 a decode
+    step; the kept and dropped assignments of every layer reported);
+    every prefill layer on the wgmma kernel at d 128. Then ``reduced()``
+    in f32, card against CPU: the same experts in every block, logits
+    within 1e-3. Returns the path's counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    arch = get_arch("moonshot-v1-16b-a3b")
+    cfg = arch.CONFIG
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - start
+    init_s = time.perf_counter() - t_phase
+    batch, prompt, new = 1, 4096, 16
+    tokens = torch.from_numpy(
+        lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
+    line, counts, cache, tok = run_lm(
+        "serve_lm_moonshot", model, cfg, tokens, new, flash,
+        "flash_wgmma_kernel", read_counts, reset_counts)
+    if line["moe"]["capacity_prefill"] != 480:
+        raise AssertionError(f"serve_lm_moonshot: capacity {line['moe']}")
+    peak = torch.cuda.max_memory_allocated()
+    line.update(lm_split(model, cfg, tokens, cache, tok, prompt + new))
+    del model, cache
+    lm_phase_end()
+    red = arch.reduced()
+    small = T.init_lm(torch.Generator(device=dev).manual_seed(1), red,
+                      device=dev)
+    line["f32_card_vs_cpu_reduced"] = card_vs_cpu(
+        "serve_lm_moonshot f32 (reduced)", small, red,
+        lm_batch(red, 2, 64, seed=0, step=3)["tokens"], "flash_fwd_kernel",
+        read_counts, reset_counts, routing=True)
+    line.update({"phase": "serve_lm_moonshot", "card": card,
+                 "init_s": init_s, "memory_at_start": start,
+                 "weights_bytes": weights, "max_memory_allocated": peak,
+                 "seconds": time.perf_counter() - t_phase})
+    emit(line)
+    del small
+    lm_phase_end()
+    return counts
+
+
+def serve_lm_kimi_layer(dev, card, flash, read_counts, reset_counts):
+    """Kimi-K2 at full width with its depth cut from 61 layers to 1 (the
+    whole model is 2.08 TB; one layer's 384 experts are 33.8 GB in bf16):
+    1 request of 4096 tokens (capacity 112) and 8 greedy tokens; its one
+    prefill layer on the wgmma kernel at d 128 (64 query heads over 8 kv
+    heads). Returns the path's counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    cfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b").CONFIG, n_layers=1)
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - start
+    init_s = time.perf_counter() - t_phase
+    batch, prompt, new = 1, 4096, 8
+    tokens = torch.from_numpy(
+        lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
+    line, counts, cache, tok = run_lm(
+        "serve_lm_kimi_layer", model, cfg, tokens, new, flash,
+        "flash_wgmma_kernel", read_counts, reset_counts)
+    if line["moe"]["capacity_prefill"] != 112:
+        raise AssertionError(f"serve_lm_kimi_layer: capacity {line['moe']}")
+    peak = torch.cuda.max_memory_allocated()
+    line.update(lm_split(model, cfg, tokens, cache, tok, prompt + new))
+    line.update({"phase": "serve_lm_kimi_layer", "card": card,
+                 "depth_cut": [61, 1], "init_s": init_s,
+                 "memory_at_start": start, "weights_bytes": weights,
+                 "max_memory_allocated": peak,
+                 "seconds": time.perf_counter() - t_phase})
+    emit(line)
+    del model, cache
+    lm_phase_end()
+    return counts
+
+
+# the mesh branch against the unsharded block, in bf16: each output row is
+# a sum of top_k expert rows of order 1 weighted by probabilities; the mesh
+# adds each position's partial sum (its experts' slots) and then the four
+# partials, the unsharded block the slots in order, so the two differ by a
+# few bf16 roundings (2^-9 relative each) of order-1 partial sums
+MOE_MESH_TOL = {"rtol": 2e-2, "atol": 2e-2}
+
+
+def moe_mesh_moonshot(dev, card, read_counts, reset_counts):
+    """One Moonlight MoE block at full width (64 experts of 2048 x 1408,
+    top 6, bf16, weights from seed 0) on the (2, 4) mesh of the card under
+    DEFAULT_RULES: 2 x 4096 tokens, a batch block of 4096 over "data", 16
+    experts a position over "model", each position's experts views of the
+    global weights. Against the unsharded block on the same tokens, on the
+    rows that neither drops (the mesh's capacity comes from its 4096 local
+    tokens, the unsharded block's from 8192). Returns the path's counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import DEFAULT_RULES, mesh_rules
+    from repro_torch.models import moe as M
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    cfg = get_arch("moonshot-v1-16b-a3b").CONFIG
+    mesh = _mesh(dev)
+    params = M.moe_init(torch.Generator(device=dev).manual_seed(0),
+                        cfg.d_model, cfg.d_ff, cfg.n_experts, torch.bfloat16,
+                        device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((2, 4096, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    kw = {"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+          "capacity_factor": cfg.capacity_factor}
+    e_loc = cfg.n_experts // mesh.shape["model"]
+    views = True
+    for block in M.expert_blocks(params, mesh, ("model",), e_loc):
+        for name, view in zip(("w_gate", "w_in", "w_out"), block):
+            whole = params[name]
+            lo = whole.data_ptr()
+            views &= lo <= view.data_ptr() < lo + whole.nbytes
+    if not views:
+        raise AssertionError("moe_mesh_moonshot: an expert block is a copy")
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with mesh_rules(mesh, DEFAULT_RULES), record_routing() as routes:
+        y, aux = M.moe_apply(params, x, **kw)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t
+    counts = read_counts()
+    t = time.perf_counter()
+    flat, flat_aux = M.moe_apply(params, x, **kw)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t
+    x2 = x.reshape(-1, cfg.d_model)
+    cap_mesh = M.moe_capacity(4096, cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor)
+    cap_flat = M.moe_capacity(8192, cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor)
+    kept_flat = M.moe_route(x2, params["router"], top_k=cfg.top_k,
+                            capacity=cap_flat).keep.all(dim=1)
+    kept_mesh = torch.cat([
+        M.moe_route(x2[b * 4096:(b + 1) * 4096], params["router"],
+                    top_k=cfg.top_k, capacity=cap_mesh).keep.all(dim=1)
+        for b in range(2)])
+    rows = kept_flat & kept_mesh
+    got, want = y.reshape(-1, cfg.d_model)[rows], flat.reshape(
+        -1, cfg.d_model)[rows]
+    err = float((got.float() - want.float()).abs().max())
+    if not (torch.isfinite(y).all() and rows.sum() > 0
+            and torch.allclose(got.float(), want.float(), **MOE_MESH_TOL)):
+        raise AssertionError(f"moe_mesh_moonshot: max abs err {err} on "
+                             f"{int(rows.sum())} rows ({MOE_MESH_TOL})")
+    # the positions of a batch block route alike: one count a block
+    per_block = [[int(r.keep.sum()), int((~r.keep).sum())]
+                 for r in routes[::mesh.shape["model"]]]
+
+    def on_mesh():
+        with mesh_rules(mesh, DEFAULT_RULES):
+            return M.moe_apply(params, x, **kw)
+
+    splits = {"split_mesh": device_split(on_mesh, LM_GROUPS),
+              "split_unsharded": device_split(
+                  lambda: M.moe_apply(params, x, **kw), LM_GROUPS)}
+    emit({"phase": "moe_mesh_moonshot", "card": card, "config": cfg.name,
+          "mesh": dict(mesh.shape), "rules": {"experts": "model",
+                                              "batch": "data"},
+          "tokens": 2 * 4096, "experts_per_position": e_loc,
+          "capacity_mesh": cap_mesh, "capacity_unsharded": cap_flat,
+          "expert_weights_are_views": views,
+          "rows_compared": int(rows.sum()), "max_abs_err": err,
+          "tolerance": MOE_MESH_TOL,
+          "aux": float(aux), "aux_unsharded": float(flat_aux),
+          "kept_dropped_per_batch_block": per_block,
+          "mesh_s": mesh_s, "unsharded_s": flat_s, **splits,
+          "memory_at_start": start,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.perf_counter() - t_phase})
+    del params, x, y, flat
+    lm_phase_end()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2947,9 +3553,38 @@ def main() -> int:
                     None, dev, flash_attention_fwd, flash_attention_plain,
                     device_runs=3),
     ]
-    for fs in flash_sets:
-        want = ("flash_fwd_kernel" if fs["shape"]["dtype"] == "float32"
-                else "flash_wgmma_kernel")
+    # the rest of the LM family's prefills: (g) gemma-2 (2 requests x 8
+    # heads, 8192 tokens, head dim 256, bf16, causal, cap 50: the f32
+    # kernel's bf16 instance), (g') with its local layers' window of 4096,
+    # (h) Mistral-NeMo (4 x 32 heads, 4096 tokens, head dim 128: wgmma at
+    # d 128; the plain version held on 32 of the 128 rows), (h') (a) with
+    # cap 50 (wgmma's capped instance); (o) the query offset on both
+    # kernels: 256 queries at offset 1024 over 1280 keys, causal, with and
+    # without a window of 512, bf16 at d 64 and f32 at d 256
+    lm_flash_sets = [
+        check_flash("g_gemma2_prefill", 2 * 8, 8192, 256, torch.bfloat16,
+                    True, None, dev, flash_attention_fwd,
+                    flash_attention_plain, softcap=50.0, iters=5),
+        check_flash("g2_gemma2_prefill_window_4096", 2 * 8, 8192, 256,
+                    torch.bfloat16, True, 4096, dev, flash_attention_fwd,
+                    flash_attention_plain, softcap=50.0, iters=5),
+        check_flash("h_nemo_prefill", 4 * 32, 4096, 128, torch.bfloat16,
+                    True, None, dev, flash_attention_fwd,
+                    flash_attention_plain, plain_rows=32),
+        check_flash("h2_lm_prefill_cap_50", 4 * 9, 4096, 64, torch.bfloat16,
+                    True, None, dev, flash_attention_fwd,
+                    flash_attention_plain, softcap=50.0),
+    ] + [
+        check_flash(f"o_offset_{str(dt)[6:]}_d{d}_window_{w}", 16, 256, d,
+                    dt, True, w, dev, flash_attention_fwd,
+                    flash_attention_plain, sk=1280, q_offset=1024)
+        for dt, d in ((torch.bfloat16, 64), (torch.float32, 256))
+        for w in (None, 512)
+    ]
+    from repro_torch.kernels.flash_attention import _kernel_for
+    for fs in flash_sets + lm_flash_sets:
+        want = _kernel_for(getattr(torch, fs["shape"]["dtype"]),
+                           fs["shape"]["d"])
         checked = [fs["kernel"]] + ([fs["same_operands_in_f32"]["kernel"]]
                                     if fs["same_operands_in_f32"] else [])
         if checked != [want] + ["flash_fwd_kernel"] * (len(checked) - 1):
@@ -2986,6 +3621,30 @@ def main() -> int:
         raise AssertionError("flash_fwd_kernel's SASS has no tensor-core "
                              f"instruction: {f32_row['sass']}")
     rows.append(f32_row)
+    # a row for each new operand set: launches from the phase that serves
+    # its arch, gemma-2's split by the call's window; a capped wgmma
+    # instance and the offset run on no arch's path (gemma-2's head dim
+    # 256 goes to flash_attention.cu; prefills start at 0): 0 launches
+    paths = {"g_gemma2_prefill": ("serve_lm_gemma2",
+                                  "flash_fwd_kernel:global"),
+             "g2_gemma2_prefill_window_4096": (
+                 "serve_lm_gemma2", "flash_fwd_kernel:window_4096"),
+             "h_nemo_prefill": ("serve_lm_mistral_nemo",
+                                "flash_wgmma_kernel")}
+    for fs in lm_flash_sets:
+        path, counter = paths.get(fs["label"], (None, fs["kernel"]))
+        rows.append({
+            "name": f"flash_attention_fwd_{fs['label']}",
+            "counter": counter, "route": "cuda", "source": fs["source"],
+            "replaces": "src/repro/kernels/flash_attention.py:111",
+            "launches": 0, "path": path, "on_path": path is not None,
+            **{k: fs[k] for k in (
+                "shape", "kernel", "max_abs_err", "tolerance", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+                "same_operands_in_f32")},
+            **{k: fs[k] for k in ("library_against_plain",
+                                  "sdpa_without_cap_ms") if k in fs},
+        })
 
     emit({"phase": "kernels", "card": smi, "checked": [
         {k: r[k] for k in ("name", "shape", "ms", "bound_ms", "plain_ms",
@@ -3210,15 +3869,33 @@ def main() -> int:
     by_path["serve_private_bert4rec"] = serve_private_bert4rec(
         dev, smi, flash_attention_fwd, xor_fold, read_counts, reset_counts)
 
-    # each kernel's count comes from the first path that runs it; every
-    # path's own counts ride along
+    # ------------------------------------- 12 the rest of the LM family
+    # each at full width, one at a time: each starts from a collected heap
+    # and frees its weights (Moonlight's 55.4 GB and the Kimi layer's
+    # 36 GB do not fit together)
+    for label, fn in (("serve_lm_gemma2", serve_lm_gemma2),
+                      ("serve_lm_mistral_nemo", serve_lm_mistral_nemo),
+                      ("serve_lm_moonshot", serve_lm_moonshot),
+                      ("serve_lm_kimi_layer", serve_lm_kimi_layer)):
+        by_path[label] = fn(dev, smi, flash_attention_fwd, read_counts,
+                            reset_counts)
+    by_path["moe_mesh_moonshot"] = moe_mesh_moonshot(
+        dev, smi, read_counts, reset_counts)
+
+    # each kernel's count comes from its path, else the first path that
+    # runs it; every path's own counts ride along. An operand set on no
+    # path keeps 0 launches
     for r in rows:
+        if r.get("on_path") is False:
+            continue
         counter = r.get("counter", r["name"])
-        path = next((p for p, c in by_path.items() if c[counter] > 0), None)
-        if path is None:
+        path = r.get("path") or next(
+            (p for p, c in by_path.items() if c.get(counter, 0) > 0), None)
+        if path is None or by_path[path][counter] <= 0:
             raise AssertionError(f"no path launched {r['name']}")
         r["launches"] = by_path[path][counter]
-        r["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
+        r["launches_by_path"] = {p: c.get(counter, 0)
+                                 for p, c in by_path.items()}
 
     # the per-server splits of the lookup batches cut into phases
     for label, pipe, planned in deferred:

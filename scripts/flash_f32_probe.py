@@ -74,10 +74,18 @@ def build(label, source):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def load(path):
+def load(path, source):
+    """The library's entry point. A source from before the query offset and
+    the softcap (no ``q_offset`` in it) takes two arguments fewer; either
+    gets no offset and no cap."""
     fn = ctypes.CDLL(str(path)).pir_flash_attention_fwd
-    fn.argtypes = list(_build._SIGNATURES["pir_flash_attention_fwd"])
+    argtypes = list(_build._SIGNATURES["pir_flash_attention_fwd"])
+    new_abi = "q_offset" in Path(source).read_text()
+    if not new_abi:
+        del argtypes[10:12]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    fn.extra = (0, 0.0) if new_abi else ()
     return fn
 
 
@@ -88,7 +96,7 @@ def caller(fn, q, k, v, causal, window):
 
     def call():
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  bh, sq, k.shape[1], d, int(causal), win,
+                  bh, sq, k.shape[1], d, int(causal), win, *fn.extra,
                   DTYPE_CODES[q.dtype], stream_ptr(q.device))
         if code != 0:
             raise RuntimeError(f"pir_flash_attention_fwd returned {code}")
@@ -143,7 +151,7 @@ def main() -> int:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{text}")
         builds[label] = _build._parse_ptxas(label, text)
-        fns[label] = load(path)
+        fns[label] = load(path, sources[label])
     report = {
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

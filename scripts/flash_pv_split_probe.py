@@ -67,7 +67,8 @@ def run(fn, q, k, v, causal, window):
     bh, sq, d = q.shape
     win = -1 if window is None or window >= sq else window
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-              sq, k.shape[1], d, int(causal), win, stream_ptr(q.device))
+              sq, k.shape[1], d, int(causal), win, 0, 0.0,
+              stream_ptr(q.device))
     if code != 0:
         raise RuntimeError(f"pir_flash_attention_wgmma returned {code}")
     return out

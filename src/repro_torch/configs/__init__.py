@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``get_arch(arch_id)`` -> the config
 module (``CONFIG``, ``SHAPES``, ``reduced()``) of the archs ported so far:
-the paper's own workload (``pir-ct``), the dense LM ``smollm-135m`` and
-the recommender ``bert4rec``. The reference package's other archs are
-listed in ROADMAP.md Queue A item 13; asking for one raises ``KeyError``."""
+the paper's own workload (``pir-ct``), the LM family (the dense
+``smollm-135m``, ``gemma2-2b`` and ``mistral-nemo-12b``, the MoE
+``moonshot-v1-16b-a3b`` and ``kimi-k2-1t-a32b``) and the recommender
+``bert4rec``. The reference package's other archs are listed in
+ROADMAP.md Queue A item 13; asking for one raises ``KeyError``."""
 
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ __all__ = ["ARCHS", "get_arch", "list_archs"]
 ARCHS = {
     # LM family
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     # RecSys
     "bert4rec": "repro_torch.configs.bert4rec",
     # the paper's own workload
@@ -21,10 +27,7 @@ ARCHS = {
 }
 
 # archs of the reference package this port does not have yet
-_NOT_PORTED = (
-    "gemma2-2b", "mistral-nemo-12b", "moonshot-v1-16b-a3b", "kimi-k2-1t-a32b",
-    "gcn-cora", "dien", "fm", "dlrm-rm2",
-)
+_NOT_PORTED = ("gcn-cora", "dien", "fm", "dlrm-rm2")
 
 
 def get_arch(arch_id: str):

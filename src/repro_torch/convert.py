@@ -171,11 +171,17 @@ def _tensor_from_numpy(a, device: torch.device, dtype: torch.dtype) -> torch.Ten
     return t.to(device=device, dtype=dtype)
 
 
-def _tree_from_numpy(tree: Any, device: torch.device, dtype: torch.dtype):
+def _tree_from_numpy(tree: Any, device: torch.device, dtype: torch.dtype,
+                     f32_leaves: Tuple[str, ...] = ()):
+    """Every leaf in ``dtype``, but those named in ``f32_leaves``, which
+    stay float32 whatever the model's dtype (the MoE router)."""
     if isinstance(tree, dict):
-        return {k: _tree_from_numpy(v, device, dtype) for k, v in tree.items()}
+        return {k: _tree_from_numpy(
+                    v, device, torch.float32 if k in f32_leaves else dtype,
+                    f32_leaves)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree_from_numpy(v, device, dtype) for v in tree]
+        return [_tree_from_numpy(v, device, dtype, f32_leaves) for v in tree]
     return _tensor_from_numpy(tree, device, dtype)
 
 
@@ -194,8 +200,9 @@ def lm_params_from_numpy(
     tree: dict, cfg, device: DeviceLike = None
 ) -> "transformer.TransformerLM":
     """The reference's ``init_lm`` pytree as numpy (``embed``, stacked
-    ``layers``, ``final_norm``) -> a :class:`TransformerLM` on ``device``
-    (``None``: the card), in the config's dtype."""
+    ``layers``, ``final_norm``; dense or MoE) -> a :class:`TransformerLM`
+    on ``device`` (``None``: the card), in the config's dtype but the MoE
+    ``router``, which stays float32 as the reference keeps it."""
     if np.shape(tree["embed"]) != (cfg.vocab, cfg.d_model):
         raise ValueError(
             f"embed is {np.shape(tree['embed'])}, the config wants "
@@ -203,7 +210,8 @@ def lm_params_from_numpy(
         )
     dev = resolve_device(device)
     return transformer.TransformerLM(
-        _tree_from_numpy(tree, dev, transformer._dtype(cfg)), cfg
+        _tree_from_numpy(tree, dev, transformer._dtype(cfg),
+                         f32_leaves=("router",)), cfg
     )
 
 

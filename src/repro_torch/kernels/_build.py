@@ -49,6 +49,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argument types (every one returns a cudaError_t, but
 # pir_fused_active_clusters, a count)
 _SIGNATURES = {
@@ -67,11 +68,12 @@ _SIGNATURES = {
     "pir_fused_active_clusters": (_I, _I),
     "pir_parity_matmul": (_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P),
     "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ... causal, window, q_offset, softcap[, dtype], stream
     "pir_flash_attention_fwd": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
     "pir_flash_attention_wgmma": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
 }
 

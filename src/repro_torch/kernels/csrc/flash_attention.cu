@@ -1,11 +1,14 @@
-// flash_attention_fwd: out = softmax(mask(q k^T / sqrt(d))) v per (batch*head)
-// row, with an online softmax so the [Sq, Sk] score matrix never leaves the
-// chip. Masks by absolute position from 0: kpos <= qpos if causal, then
-// kpos > qpos - window if a window is set. Masked scores take the finite
-// value -1e30 (not -inf), the padding keys >= sk take -inf, the f32 carry
-// is (acc, m, l), and the epilogue is acc / max(l, 1e-30) cast to the
-// input type. Takes float32 and bfloat16 operands at every head dim up to
-// 256 (bf16 at d 64 and 128 goes to flash_attention_wgmma.cu instead).
+// flash_attention_fwd: out = softmax(mask(cap(q k^T / sqrt(d)))) v per
+// (batch*head) row, with an online softmax so the [Sq, Sk] score matrix
+// never leaves the chip. Masks by absolute position, keys from 0 and
+// queries from q_offset (qpos = row + q_offset): kpos <= qpos if causal,
+// then kpos > qpos - window if a window is set. cap(s) = softcap *
+// tanh(s / softcap) when softcap > 0 (gemma-2), applied before the mask
+// as the reference's _attn_core does. Masked scores take the finite value
+// -1e30 (not -inf), the padding keys >= sk take -inf, the f32 carry is
+// (acc, m, l), and the epilogue is acc / max(l, 1e-30) cast to the input
+// type. Takes float32 and bfloat16 operands at every head dim up to 256
+// (bf16 at d 64 and 128 goes to flash_attention_wgmma.cu instead).
 //
 // Replaces the TPU kernel of the reference package's
 // kernels/flash_attention.py (`_kernel`: a grid (B*H, q blocks, kv blocks)
@@ -65,9 +68,24 @@
 //   row that the mask empties (Sq > Sk with a window) averages its Sk real
 //   keys, as the plain version does.
 // - exp2f with log2(e) folded into the scale, never __expf.
+// - Two instances a head dim and type, by the template flag GEN: the
+//   plain one (no offset, no cap) is the code it was (the offset's
+//   position arithmetic, taken at run time, cost ~2 % at 4096 tokens in
+//   f32); the general one takes the offset and a cap flag that is the
+//   same for the whole grid (gemma-2's prefill runs it at offset 0). With
+//   the cap, a score is s * scale / cap, then tanhf (the accurate one:
+//   tanh.approx.f32's ~2^-11 relative error, times a cap of 50, would
+//   cost the f32 tolerance), then * cap * log2(e), so the exp2 domain is
+//   entered after the cap. The masks come after the cap: a padding key
+//   stays -inf (tanh(-inf) = -1 would bring it back).
+// - The query offset shifts every position test: the tile range, the
+//   per-warp 8-key blocks, the fullness test and the per-element mask all
+//   use the absolute position row + q_offset. The window skip needs every
+//   row's diagonal key to be a real one: Sq + q_offset <= Sk.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -185,11 +203,14 @@ __device__ __forceinline__ uint32_t bits_f32(__nv_bfloat16 x) {
 // One key tile for one warp's 16 rows: S = Q K^T, the online softmax, O +=
 // P V. FULL: every 8-key block is seen and no mask applies (no predicate
 // in the loops); else the blocks [nb_begin, nb_end) and the masks.
-template <bool FULL, int DP, typename T>
+// qa: the absolute position of the warp's first row (row + q_offset).
+// s -> s * pre, or in GEN post * f(s * pre) (f = tanh when capped).
+template <bool FULL, bool GEN, int DP, typename T>
 __device__ __forceinline__ void attend_tile(
     const T* qs, const T* ks, const T* vs, int nb_begin, int nb_end, int k0,
-    int qw, int sk, int causal, long long window, float scale_log2, int g,
-    int t, float (&m)[2], float (&l)[2], float (&o)[DP / 8][4]) {
+    int qa, int sk, int causal, long long window, float pre, float post,
+    bool capped, int g, int t, float (&m)[2], float (&l)[2],
+    float (&o)[DP / 8][4]) {
   using L = Tiles<DP, T>;
   constexpr int NB = L::BK / 8, KC = DP / 8;
   constexpr bool F32 = sizeof(T) == 4;
@@ -222,15 +243,24 @@ __device__ __forceinline__ void attend_tile(
     }
   }
 
-  // scale (log2 units), mask, then the online softmax of rows g, g + 8
+  // scale (log2 units; the cap first), mask, then the online softmax of
+  // rows g, g + 8. The general instance takes one sequence either way:
+  // post * f(s * pre), f = tanh with the cap, else the identity (pre =
+  // scale_log2, post = 1, so s * pre * 1 is the plain instance's s *
+  // scale_log2 bit for bit)
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      s[nb][e] *= scale_log2;
+      if constexpr (GEN) {
+        const float x = s[nb][e] * pre;
+        s[nb][e] = post * (capped ? tanhf(x) : x);
+      } else {
+        s[nb][e] *= pre;
+      }
       if constexpr (!FULL) {
         const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
-        const long long qpos = qw + g + 8 * (e >> 1);
+        const long long qpos = qa + g + 8 * (e >> 1);
         bool ok = true;
         if (causal) ok = kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
@@ -308,12 +338,12 @@ __device__ __forceinline__ void attend_tile(
   }
 }
 
-template <int DP, typename T>
+template <int DP, typename T, bool GEN>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int bh_count,
                  int sq, int sk, int d, int causal, long long window,
-                 float scale_log2, int vec) {
+                 int q_offset, float pre, float post, int capped, int vec) {
   using L = Tiles<DP, T>;
   constexpr int BK = L::BK, NS = L::NS, NB = BK / 8, KC = DP / 8;
   extern __shared__ float4 smem4[];
@@ -326,6 +356,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qw = q0 + 16 * warp;  // the warp's first row
   const bool active = qw < sq;
   const int qw_last = min(qw + 15, sq - 1);
+  // absolute positions (row + q_offset; q_offset + sq < 2^31, checked) of
+  // the warp's rows; in the plain instance they are the rows
+  const int q_off = GEN ? q_offset : 0;
+  const int qwa = qw + q_off, qwa_last = qw_last + q_off;
   const long long qbase = (long long)bh * sq * d;
   const long long kbase = (long long)bh * sk * d;
 
@@ -334,12 +368,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int nk = (sk + BK - 1) / BK;
   int kt_begin = 0, kt_end = nk;
-  const bool window_skip = causal && window > 0 && sq <= sk;
+  const bool window_skip = causal && window > 0 && sq + q_off <= sk;
   if (causal) {
-    const int q_last = min(q0 + BQ, sq) - 1;
+    const int q_last = min(q0 + BQ, sq) - 1 + q_off;
     kt_end = min(nk, q_last / BK + 1);
     if (window_skip) {
-      const long long first_key = (long long)q0 - window + 1;
+      const long long first_key = (long long)q0 + q_off - window + 1;
       if (first_key > 0) kt_begin = (int)(first_key / BK);
     }
   }
@@ -385,25 +419,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = (kt_begin + it) * BK;
     // the 8-key blocks of this tile that the warp's rows can see
     int nb_begin = 0, nb_end = min(NB, (sk - k0 + 7) / 8);
-    if (causal) nb_end = qw_last < k0 ? 0 : min(nb_end, (qw_last - k0) / 8 + 1);
+    if (causal)
+      nb_end = qwa_last < k0 ? 0 : min(nb_end, (qwa_last - k0) / 8 + 1);
     if (window_skip) {
-      const long long first_key = (long long)qw - window + 1;
+      const long long first_key = (long long)qwa - window + 1;
       if (first_key > k0) {
         const long long skip = (first_key - k0) / 8;
         nb_begin = skip < NB ? (int)skip : NB;
       }
     }
     if (nb_begin >= nb_end) continue;
-    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qw) ||
-                      (window > 0 && k0 <= (long long)qw + 15 - window);
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qwa) ||
+                      (window > 0 && k0 <= (long long)qwa + 15 - window);
     const T* ks = ring + (it % NS) * L::STAGE_ELEMS;
     const T* vs = ks + BK * L::LDK;
     if (edge || nb_begin > 0 || nb_end < NB)
-      attend_tile<false, DP>(qs, ks, vs, nb_begin, nb_end, k0, qw, sk, causal,
-                             window, scale_log2, g, t, m, l, o);
+      attend_tile<false, GEN, DP>(qs, ks, vs, nb_begin, nb_end, k0, qwa, sk,
+                                  causal, window, pre, post, capped, g, t, m,
+                                  l, o);
     else
-      attend_tile<true, DP>(qs, ks, vs, 0, NB, k0, qw, sk, causal, window,
-                            scale_log2, g, t, m, l, o);
+      attend_tile<true, GEN, DP>(qs, ks, vs, 0, NB, k0, qwa, sk, causal,
+                                 window, pre, post, capped, g, t, m, l, o);
   }
   cp_async_wait<0>();
   if (!active) return;
@@ -426,53 +462,77 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DP, typename T>
+template <int DP, typename T, bool GEN>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq, int sk, int d, int causal, int window, cudaStream_t s) {
+           int sq, int sk, int d, int causal, int window, int q_off,
+           float cap, cudaStream_t s) {
   constexpr int smem = Tiles<DP, T>::SMEM;
-  auto kern = flash_fwd_kernel<DP, T>;
+  auto kern = flash_fwd_kernel<DP, T, GEN>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)bh * ((sq + BQ - 1) / BQ);
-  // scores in log2 units: exp2f(x * log2(e) / sqrt(d)) = exp(x / sqrt(d))
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)d));
+  // scores in log2 units: exp2f(x * log2(e) / sqrt(d)) = exp(x / sqrt(d));
+  // with a cap: tanh of s / (sqrt(d) cap), then * cap * log2(e)
+  const int capped = cap > 0.f;
+  const float pre = capped ? (float)(1.0 / (sqrt((double)d) * cap))
+                           : (float)(1.4426950408889634 / sqrt((double)d));
+  const float post = capped ? (float)(1.4426950408889634 * cap) : 1.f;
   const int vec = (d * (int)sizeof(T)) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
   kern<<<(unsigned)blocks, THREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, bh, sq, sk, d, causal,
-      (long long)window, scale_log2, vec);
+      (long long)window, q_off, pre, post, capped, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool GEN>
 int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int sq, int sk, int d, int causal, int window, cudaStream_t s) {
-  if (d <= 16) return launch<16, T>(q, k, v, out, bh, sq, sk, d, causal, window, s);
-  if (d <= 32) return launch<32, T>(q, k, v, out, bh, sq, sk, d, causal, window, s);
-  if (d <= 64) return launch<64, T>(q, k, v, out, bh, sq, sk, d, causal, window, s);
-  if (d <= 128) return launch<128, T>(q, k, v, out, bh, sq, sk, d, causal, window, s);
-  return launch<256, T>(q, k, v, out, bh, sq, sk, d, causal, window, s);
+             int sq, int sk, int d, int causal, int window, int q_off,
+             float cap, cudaStream_t s) {
+#define PIR_FLASH_LAUNCH(DP)                                                \
+  return launch<DP, T, GEN>(q, k, v, out, bh, sq, sk, d, causal, window,   \
+                            q_off, cap, s)
+  if (d <= 16) PIR_FLASH_LAUNCH(16);
+  if (d <= 32) PIR_FLASH_LAUNCH(32);
+  if (d <= 64) PIR_FLASH_LAUNCH(64);
+  if (d <= 128) PIR_FLASH_LAUNCH(128);
+  PIR_FLASH_LAUNCH(256);
+#undef PIR_FLASH_LAUNCH
 }
 
 }  // namespace
 
 // q, out: [bh, sq, d]; k, v: [bh, sk, d], all contiguous, one element type:
 // dtype 0 = float32, 1 = bfloat16. window: -1 = none, else >= 1. d <= 256.
+// q_offset >= 0 with q_offset + sq < 2^31; softcap: 0 = none, else > 0.
 PIR_EXPORT int pir_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* out, int bh,
                                        int sq, int sk, int d, int causal,
-                                       int window, int dtype, void* stream) {
+                                       int window, int q_offset, float softcap,
+                                       int dtype, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if (sk <= 0 || d <= 0 || d > 256 || window == 0 || window < -1)
+  if (sk <= 0 || d <= 0 || d > 256 || window == 0 || window < -1 ||
+      q_offset < 0 || q_offset > INT_MAX - sq ||
+      !(softcap >= 0.f && softcap < INFINITY))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, out, bh, sq, sk, d, causal, window, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, sk, d, causal, window,
-                                   s);
+  // a cap or an offset goes to the general instance
+  const bool gen = softcap > 0.f || q_offset > 0;
+#define PIR_FLASH_DISPATCH(T)                                               \
+  if (gen)                                                                  \
+    return dispatch<T, true>(q, k, v, out, bh, sq, sk, d, causal, window,   \
+                             q_offset, softcap, s);                         \
+  return dispatch<T, false>(q, k, v, out, bh, sq, sk, d, causal, window,    \
+                            q_offset, softcap, s)
+  if (dtype == 0) {
+    PIR_FLASH_DISPATCH(float);
+  }
+  if (dtype == 1) {
+    PIR_FLASH_DISPATCH(__nv_bfloat16);
+  }
+#undef PIR_FLASH_DISPATCH
   return (int)cudaErrorInvalidValue;
 }

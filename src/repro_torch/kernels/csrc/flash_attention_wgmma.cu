@@ -1,8 +1,9 @@
 // flash_attention_wgmma: the bf16 flash-attention forward on Hopper's
-// tensor cores. out = softmax(mask(q k^T / sqrt(d))) v per (batch*head)
-// row, d in {64, 128}, with the masks, the finite -1e30, the f32 carry
-// (acc, m, l) and the acc / max(l, 1e-30) epilogue of flash_attention.cu,
-// which keeps float32 operands and the other head dims.
+// tensor cores. out = softmax(mask(cap(q k^T / sqrt(d)))) v per
+// (batch*head) row, d in {64, 128}, with the masks (queries at row +
+// q_offset), the softcap, the finite -1e30, the f32 carry (acc, m, l) and
+// the acc / max(l, 1e-30) epilogue of flash_attention.cu, which keeps
+// float32 operands and the other head dims.
 //
 // Replaces the TPU kernel of the reference package's
 // kernels/flash_attention.py (`_kernel`: a grid (B*H, q blocks, kv blocks)
@@ -66,6 +67,16 @@
 //   issue (two named barriers), so one's products run while the other's
 //   softmax does. No wgmma sits in a conditional path (the first tile is
 //   peeled off): ptxas would serialize them.
+// - Softcap and query offset. The cap is a template flag (CAP): the
+//   capless instances keep their float arithmetic. The offset is taken at
+//   run time (its integer adds time level with the offset-free kernel at
+//   chip_smoke.py's (a), (b) and (d)). With the cap, a scaled score
+//   becomes cap * tanhf(s / cap) in f32 (the accurate tanhf: tanh.approx.f32's
+//   ~2^-11 relative error, times a cap of 50, would cost the bf16
+//   tolerance), before the mask, so a padding key stays -inf. The offset
+//   shifts the positions of the tile range, the edge test and the mask;
+//   the window skip needs Sq + q_offset <= Sk (every row's diagonal key is
+//   real).
 // - Epilogue. acc / max(l, 1e-30), rounded once to bf16, written into the
 //   warpgroup's own (now unused) Q rows in the swizzled layout, then one
 //   TMA store per 64 columns; TMA drops rows >= Sq.
@@ -75,6 +86,7 @@
 #include "sm90.cuh"
 
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -195,17 +207,25 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo_col, float hi_col) {
 
 // The online softmax of one 64 x BK tile of scores. s: the raw products
 // in the wgmma accumulator layout (element i: row r0 + 8 * ((i >> 1) & 1),
-// key k0 + 8 * (i / 4) + c0 + (i & 1)). Scales, masks (on edge tiles),
+// key k0 + 8 * (i / 4) + c0 + (i & 1); r0 the absolute position, row +
+// q_offset). Scales (then caps: cap * tanh(s * scale / cap), with
+// scale_cap = scale / cap), masks (on edge tiles),
 // updates the carry (m, l), rescales o by alpha, and leaves P split into
 // bf16 hi and lo halves in the A-fragment layout of the P.V product: key
 // step kk holds elements 8kk..8kk+7, register j the pair 8kk + 2j, +1.
-template <int D, int BK>
+template <int D, int BK, bool CAP>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float (&o)[D / 2], float (&m)[2], float (&l)[2],
     uint32_t (&phi)[BK / 16][4], uint32_t (&plo)[BK / 16][4], bool edge,
-    int k0, int r0, int c0, int sk, int causal, int window, float scale) {
+    int k0, int r0, int c0, int sk, int causal, int window, float scale,
+    float cap, float scale_cap) {
+  if constexpr (CAP) {
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) s[i] *= scale;
+    for (int i = 0; i < BK / 2; ++i) s[i] = cap * tanhf(s[i] * scale_cap);
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] *= scale;
+  }
   if (edge) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
@@ -290,13 +310,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 }
 
 // ------------------------------------------------------------------ kernel
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_o, int bh_count,
-                   int sq, int sk, int causal, int window, float scale) {
+                   int sq, int sk, int causal, int window, int q_off,
+                   float scale, float cap, float scale_cap) {
   using T = Tile<D>;
   constexpr int BK = T::BK, CB = T::CB;
   extern __shared__ uint8_t smem_raw[];
@@ -315,10 +336,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int nk = (sk + BK - 1) / BK;
   int kt_begin = 0, kt_end = nk;
   if (causal) {
-    const int q_last = min(q0 + BQ, sq) - 1;
+    // absolute positions: row + q_off (q_off + sq < 2^31, checked)
+    const int q_last = min(q0 + BQ, sq) - 1 + q_off;
     kt_end = min(nk, q_last / BK + 1);
-    if (window > 0 && sq <= sk) {
-      const long long first_key = (long long)q0 - window + 1;
+    if (window > 0 && sq + q_off <= sk) {
+      const long long first_key = (long long)q0 + q_off - window + 1;
       if (first_key > 0) kt_begin = (int)(first_key / BK);
     }
   }
@@ -370,7 +392,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // accumulator element i of a thread: row r0 (+8 if i & 2), column
   // 8 * (i / 4) + c0 + (i & 1)
   const int r_local = warp * 16 + lane / 4;
-  const int r0 = q0w + r_local;
+  const int qa0w = q0w + q_off;  // absolute position of the first row
+  const int r0 = qa0w + r_local;
   const int c0 = 2 * (lane % 4);
   const uint32_t qw_addr = sq_addr + wg * WG_ROWS * ROW_BYTES;
 
@@ -393,8 +416,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n = kt_end - kt_begin;
   // the key tile's mask is applied only where it can mask something
   auto edge = [&](int k0) {
-    return k0 + BK > sk || (causal && k0 + BK - 1 > q0w) ||
-           (window > 0 && k0 <= q0w + WG_ROWS - 1 - window);
+    return k0 + BK > sk || (causal && k0 + BK - 1 > qa0w) ||
+           (window > 0 && (long long)k0 <= (long long)qa0w + WG_ROWS - 1 -
+                                                window);
   };
 
   mbar_wait(q_full, 0);
@@ -407,8 +431,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   bar_arrive(SCHED_BAR + 1 - wg, 2 * 128);
   wgmma_wait_all();
   fence_regs(s);
-  softmax_tile<D, BK>(s, o, m, l, phi, plo, edge(kt_begin * BK),
-                      kt_begin * BK, r0, c0, sk, causal, window, scale);
+  softmax_tile<D, BK, CAP>(s, o, m, l, phi, plo, edge(kt_begin * BK),
+                           kt_begin * BK, r0, c0, sk, causal, window, scale,
+                           cap, scale_cap);
   int stage = 1, prev = 0;  // the ring position of tile 1, and of tile 0
   uint32_t phase = 0;
   for (int j = 1; j < n; ++j) {
@@ -425,8 +450,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(o);
     // tile j-1 is done with (its V was the last read of that stage)
     if (t == 0) mbar_arrive(empty + 8 * prev);
-    softmax_tile<D, BK>(s, o, m, l, phi, plo, edge(k0), k0, r0, c0, sk,
-                        causal, window, scale);
+    softmax_tile<D, BK, CAP>(s, o, m, l, phi, plo, edge(k0), k0, r0, c0, sk,
+                             causal, window, scale, cap, scale_cap);
     prev = stage;
     if (++stage == STAGES) {
       stage = 0;
@@ -491,9 +516,10 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq, int sk, int causal, int window, cudaStream_t s) {
+           int sq, int sk, int causal, int window, int q_off, float cap,
+           cudaStream_t s) {
   using T = Tile<D>;
   CUtensorMap mq, mk, mv, mo;
   if (!tensor_map(&mq, q, bh, sq, D, BQ) ||
@@ -501,7 +527,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
       !tensor_map(&mv, v, bh, sk, D, T::BK) ||
       !tensor_map(&mo, out, bh, sq, D, WG_ROWS))
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_wgmma_kernel<D>;
+  auto kern = flash_wgmma_kernel<D, CAP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -513,26 +539,43 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   if (attr.numRegs < LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
   const long long blocks = (long long)bh * ((sq + BQ - 1) / BQ);
   const float scale = (float)(1.0 / sqrt((double)D));
-  kern<<<(unsigned)blocks, THREADS, T::SMEM, s>>>(mq, mk, mv, mo, bh, sq, sk,
-                                                  causal, window, scale);
+  const float scale_cap = CAP ? (float)(1.0 / (sqrt((double)D) * cap)) : 0.f;
+  kern<<<(unsigned)blocks, THREADS, T::SMEM, s>>>(
+      mq, mk, mv, mo, bh, sq, sk, causal, window, q_off, scale, cap,
+      scale_cap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: [bh, sq, d]; k, v: [bh, sk, d]; all contiguous bf16 on 16-byte
-// boundaries, d = 64 or 128. window: -1 = none, else >= 1.
+// boundaries, d = 64 or 128. window: -1 = none, else >= 1. q_offset >= 0
+// with q_offset + sq < 2^31; softcap: 0 = none, else > 0.
 PIR_EXPORT int pir_flash_attention_wgmma(const void* q, const void* k,
                                          const void* v, void* out, int bh,
                                          int sq, int sk, int d, int causal,
-                                         int window, void* stream) {
+                                         int window, int q_offset,
+                                         float softcap, void* stream) {
   if (bh <= 0 || sq <= 0) return 0;
-  if (sk <= 0 || window == 0 || window < -1) return (int)cudaErrorInvalidValue;
+  if (sk <= 0 || window == 0 || window < -1 || q_offset < 0 ||
+      q_offset > INT_MAX - sq || !(softcap >= 0.f && softcap < INFINITY))
+    return (int)cudaErrorInvalidValue;
   const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                         (uintptr_t)out;
   if (any % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, k, v, out, bh, sq, sk, causal, window, s);
-  if (d == 128) return launch<128>(q, k, v, out, bh, sq, sk, causal, window, s);
+#define PIR_WGMMA_LAUNCH(D, CAP)                                            \
+  return launch<D, CAP>(q, k, v, out, bh, sq, sk, causal, window, q_offset, \
+                        softcap, s)
+  const bool cap = softcap > 0.f;
+  if (d == 64) {
+    if (cap) PIR_WGMMA_LAUNCH(64, true);
+    PIR_WGMMA_LAUNCH(64, false);
+  }
+  if (d == 128) {
+    if (cap) PIR_WGMMA_LAUNCH(128, true);
+    PIR_WGMMA_LAUNCH(128, false);
+  }
+#undef PIR_WGMMA_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,16 @@
 """Flash-attention forward (online softmax) over the ``[B·H, S, D]`` layout.
 
-    out[b] = softmax(mask(q[b] k[b]ᵀ / √D)) v[b]
+    out[b] = softmax(mask(cap(q[b] k[b]ᵀ / √D))) v[b]
 
-with masks by absolute position from 0 for both q and k: ``kpos ≤ qpos``
-if ``causal``, ``kpos > qpos − window`` if ``window`` is set (gemma-2's
-local layers; ``window`` is at least 1). Scores, the softmax and the
-products run in f32 whatever the input type (float32 or bfloat16); the
-result comes back in q's type. Masked scores take the finite ``NEG_INF``.
+with masks by absolute position: keys from 0, queries from ``q_offset``
+(``qpos = row + q_offset``, at least 0): ``kpos ≤ qpos`` if ``causal``,
+``kpos > qpos − window`` if ``window`` is set (gemma-2's local layers;
+``window`` is at least 1). ``cap(s) = softcap·tanh(s / softcap)`` when
+``softcap > 0`` (gemma-2's logit softcap), the identity at 0; it comes
+before the mask, as in the reference's ``_attn_core``. Scores, the cap,
+the softmax and the products run in f32 whatever the input type (float32
+or bfloat16); the result comes back in q's type. Masked scores take the
+finite ``NEG_INF``.
 
 :func:`flash_attention_fwd` launches one of two hand-written CUDA kernels
 for tensors on the card, chosen by operand type (:func:`_kernel_for`):
@@ -15,10 +19,12 @@ bfloat16 at a head dim of 64 or 128 goes to ``csrc/flash_attention_wgmma.cu``
 so P keeps about 16 mantissa bits), everything else (float32, the
 other head dims up to 256) to ``csrc/flash_attention.cu`` (the TF32 tensor
 cores through ``mma.sync``, each f32 operand split into TF32 hi + lo
-halves and each product taken in three passes: f32 accuracy). Both replace
-the reference package's TPU kernel
-``kernels/flash_attention.py::_kernel``; the function is bound by
-operations, 4·d flops per unmasked (q, k) pair. It takes
+halves and each product taken in three passes: f32 accuracy). Both take
+the softcap and the query offset. Both replace the reference package's
+TPU kernel ``kernels/flash_attention.py::_kernel`` (which has neither: the
+reference applies them in ``models/layers.py::_attn_core``); the
+function is bound by operations, 4·d flops per unmasked (q, k) pair (the
+cap adds one tanh a pair). It takes
 :func:`flash_attention_plain` only for tensors on the CPU. The kernels
 zero-fill the ragged edges of Sq and Sk in their tiles, as the reference
 zero-pads them, and give the padded keys −inf: a row that the mask
@@ -59,7 +65,7 @@ def _kernel_for(dtype: torch.dtype, d: int) -> str:
     return TF32_KERNEL
 
 
-def _check_args(q, k, v, window) -> None:
+def _check_args(q, k, v, window, softcap, q_offset) -> None:
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(
             f"need q [BH, Sq, D] and k, v [BH, Sk, D], got {tuple(q.shape)}, "
@@ -72,19 +78,29 @@ def _check_args(q, k, v, window) -> None:
         )
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be at least 1, got {window}")
+    if not (math.isfinite(softcap) and softcap >= 0.0):
+        raise ValueError(f"softcap must be finite and at least 0, got {softcap}")
+    # a negative offset (queries before the first key) is refused, where
+    # the reference's gqa_attention takes it: no caller of the port has one
+    if q_offset < 0 or q_offset + q.shape[1] >= 2**31:
+        raise ValueError(f"q_offset must be in [0, 2**31 - Sq), got {q_offset}")
 
 
 def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, window: Optional[int] = None,
+    softcap: float = 0.0, q_offset: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch version (the reference's oracle ``flash_attention_ref``):
-    einsum, mask, softmax, einsum, all in f32; the [BH, Sq, Sk] scores are
+    """Plain PyTorch version (the reference's oracle ``flash_attention_ref``,
+    with the cap and the offset of its ``_attn_core``): einsum, cap, mask,
+    softmax, einsum, all in f32; the [BH, Sq, Sk] scores are
     materialised."""
     d = q.shape[-1]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
     s = s / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
-    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(q.shape[1], device=q.device)[:, None] + int(q_offset)
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
                       device=q.device)
@@ -104,17 +120,22 @@ def flash_attention_fwd(
     *,
     causal: bool = True,
     window: Optional[int] = None,
+    softcap: float = 0.0,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """q: [BH, Sq, D]; k, v: [BH, Sk, D], float32 or bfloat16 -> [BH, Sq, D]
-    in q's dtype.
+    in q's dtype. ``softcap`` ≥ 0 (0: none) and ``q_offset`` ≥ 0 as in the
+    module's docstring; a negative value of either raises ``ValueError``.
 
     The reference's ``block_q``/``block_k`` tuning arguments have no
     counterpart: each CUDA kernel's tiles are fixed by its register and
     shared-memory layout (``TILE_Q`` q rows a block). ``launches`` counts
     every launch, ``kernel_launches`` each kernel's."""
-    _check_args(q, k, v, window)
+    softcap, q_offset = float(softcap), int(q_offset)
+    _check_args(q, k, v, window, softcap, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, q_offset=q_offset)
     dev = q.device
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got {q.dtype}")
@@ -137,11 +158,14 @@ def flash_attention_fwd(
         raise ValueError("flash_attention_fwd: the TMA loads of bf16 "
                          "operands need 16-byte aligned tensors")
     # a window that no row can reach masks nothing (the global window of
-    # the LM is 1 << 30); the kernels take -1 for none
-    win = -1 if window is None or int(window) >= sq else int(window)
+    # the LM is 1 << 30): the last row's position is q_offset + sq - 1, so
+    # key 0 is inside every row's window when window >= q_offset + sq; the
+    # kernels take -1 for none
+    win = (-1 if window is None or int(window) >= q_offset + sq
+           else int(window))
     lib = _build.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            bh, sq, sk, d, int(bool(causal)), win)
+            bh, sq, sk, d, int(bool(causal)), win, q_offset, softcap)
     with torch.cuda.device(dev):
         if kernel == WGMMA_KERNEL:
             code = lib.pir_flash_attention_wgmma(*args, stream_ptr(dev))

@@ -16,7 +16,7 @@ CPU tensor it is the reference's plain ``_attn_core``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +28,15 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 __all__ = [
     "ParamTree",
     "as_tree",
+    "Leaf",
+    "fill_normal_",
+    "alloc_leaves",
+    "fill_leaves_",
+    "init_leaves",
+    "dense_spec",
     "dense_init",
     "dense",
+    "rmsnorm_spec",
     "rmsnorm_init",
     "rmsnorm",
     "layernorm_init",
@@ -39,6 +46,7 @@ __all__ = [
     "softcap",
     "gqa_attention",
     "decode_attention",
+    "swiglu_spec",
     "swiglu_init",
     "swiglu",
     "gelu_mlp_init",
@@ -91,12 +99,82 @@ def _normal(gen: torch.Generator, shape) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+# a block of draws in f32: 256 MB
+_DRAW_ELEMS = 1 << 26
+
+
+def fill_normal_(out: torch.Tensor, gen: torch.Generator,
+                 scale: float) -> torch.Tensor:
+    """``out`` <- N(0, 1)·``scale`` from ``gen``, drawn in f32 on the
+    generator's device a block of leading rows at a time (at most
+    ``_DRAW_ELEMS`` values) and cast into ``out``'s dtype and device: a
+    leaf never exists whole in f32 (a Kimi-K2 expert leaf, [384, 7168,
+    2048], would be 22.5 GB)."""
+    if out.dim() == 0 or out.numel() <= _DRAW_ELEMS:
+        return out.copy_(_normal(gen, out.shape) * scale)
+    per_row = out[0].numel()
+    if per_row > _DRAW_ELEMS:
+        for row in out:
+            fill_normal_(row, gen, scale)
+        return out
+    step = _DRAW_ELEMS // per_row
+    for r in range(0, out.shape[0], step):
+        block = out[r:r + step]
+        block.copy_(_normal(gen, block.shape) * scale)
+    return out
+
+
+class Leaf(NamedTuple):
+    """How one parameter is initialised: its shape, N(0, 1)·``scale``
+    (``None``: zeros) and its dtype (``None``: the model's)."""
+
+    shape: Tuple[int, ...]
+    scale: Optional[float]
+    dtype: Optional[torch.dtype] = None
+
+
+def alloc_leaves(spec, dtype: torch.dtype, device: torch.device,
+                 lead: Tuple[int, ...] = ()):
+    """A nested dict of :class:`Leaf` -> the same dict of uninitialised
+    tensors, each ``lead + leaf.shape``, allocated once."""
+    if isinstance(spec, Leaf):
+        return torch.empty(tuple(lead) + tuple(spec.shape),
+                           dtype=spec.dtype or dtype, device=device)
+    return {k: alloc_leaves(v, dtype, device, lead) for k, v in spec.items()}
+
+
+def fill_leaves_(tree, spec, gen: torch.Generator, index=None):
+    """Fills ``tree`` (or its entry ``index`` along the lead dim, a layer
+    of a stacked tree) as ``spec`` says, leaf by leaf in the spec's
+    order, in place."""
+    if isinstance(spec, Leaf):
+        out = tree if index is None else tree[index]
+        if spec.scale is None:
+            out.zero_()
+        else:
+            fill_normal_(out, gen, spec.scale)
+        return tree
+    for k, v in spec.items():
+        fill_leaves_(tree[k], v, gen, index)
+    return tree
+
+
+def init_leaves(spec, gen: torch.Generator, dtype: torch.dtype,
+                device: DeviceLike = None):
+    """A nested dict of :class:`Leaf` -> its tensors, drawn from ``gen``
+    on ``device`` (``None``: the card)."""
+    return fill_leaves_(alloc_leaves(spec, dtype, resolve_device(device)),
+                        spec, gen)
+
+
 # ----------------------------------------------------------------- dense
+def dense_spec(d_in: int, d_out: int) -> Dict[str, Leaf]:
+    return {"w": Leaf((d_in, d_out), 1.0 / math.sqrt(d_in))}
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, device: DeviceLike = None):
-    dev = resolve_device(device)
-    scale = 1.0 / math.sqrt(d_in)
-    return {"w": (_normal(gen, (d_in, d_out)) * scale).to(dev, dtype)}
+    return init_leaves(dense_spec(d_in, d_out), gen, dtype, device)
 
 
 def dense(params, x: torch.Tensor) -> torch.Tensor:
@@ -104,6 +182,10 @@ def dense(params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ norm
+def rmsnorm_spec(d: int) -> Dict[str, Leaf]:
+    return {"scale": Leaf((d,), None)}
+
+
 def rmsnorm_init(d: int, dtype=torch.float32, device: DeviceLike = None):
     # gemma-style (1 + scale)
     return {"scale": torch.zeros((d,), dtype=dtype, device=resolve_device(device))}
@@ -134,8 +216,8 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # ------------------------------------------------------------- embedding
 def embedding_init(gen: torch.Generator, vocab: int, d: int,
                    dtype=torch.float32, device: DeviceLike = None):
-    dev = resolve_device(device)
-    return {"table": (_normal(gen, (vocab, d)) * 0.02).to(dev, dtype)}
+    return init_leaves({"table": Leaf((vocab, d), 0.02)}, gen, dtype,
+                       device)
 
 
 # ------------------------------------------------------------------ rope
@@ -192,7 +274,7 @@ def _attn_core(q, k, v, qpos, kpos, causal, window, attn_softcap, dh):
 ATTN_CHUNK_Q = 2048  # query blocking threshold/size of the plain path
 
 
-def _flash(q, k, v, causal, window) -> torch.Tensor:
+def _flash(q, k, v, causal, window, softcap, q_offset) -> torch.Tensor:
     """[B, Sq, H, D] (K/V already broadcast) through the flash kernel's
     [B·H, S, D] layout and back."""
     b, sq, h, d = q.shape
@@ -200,7 +282,8 @@ def _flash(q, k, v, causal, window) -> torch.Tensor:
     qf = q.permute(0, 2, 1, 3).reshape(b * h, sq, d).contiguous()
     kf = k.permute(0, 2, 1, 3).reshape(b * h, sk, d).contiguous()
     vf = v.permute(0, 2, 1, 3).reshape(b * h, sk, d).contiguous()
-    out = flash_attention_fwd(qf, kf, vf, causal=causal, window=window)
+    out = flash_attention_fwd(qf, kf, vf, causal=causal, window=window,
+                              softcap=softcap, q_offset=q_offset)
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
@@ -216,33 +299,25 @@ def gqa_attention(
 ) -> torch.Tensor:
     """GQA attention with an optional local window. Returns [B, Sq, Hq, D].
 
+    ``q_offset`` shifts query positions (prefill = 0); ``attn_softcap``
+    caps the scaled scores (gemma-2) before the mask.
+
     On a CUDA tensor: K/V broadcast over the query groups, then the flash
-    kernel (f32 softmax inside, the result in q's dtype). The kernel has
-    neither a logit softcap nor a query offset, so ``attn_softcap > 0`` or
-    ``q_offset != 0`` raise ``NotImplementedError`` there (ROADMAP.md
-    Queue A item 13); there is no fallback to the plain path.
+    kernel, which takes the softcap and the offset (f32 scores, cap and
+    softmax inside, the result in q's dtype); there is no fallback to the
+    plain path.
 
     On a CPU tensor: the reference's plain path, with queries longer than
     ``ATTN_CHUNK_Q`` (and a multiple of it) taken in chunks so the
-    [Sq, Skv] scores never materialise whole. ``q_offset`` shifts query
-    positions (prefill = 0)."""
+    [Sq, Skv] scores never materialise whole."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     k = _repeat_kv(k, hq // hkv)
     v = _repeat_kv(v, hq // hkv)
     window = None if window is None else int(window)
     if q.device.type != "cpu":
-        if attn_softcap > 0.0:
-            raise NotImplementedError(
-                "gqa_attention on the card has no logit softcap (the flash "
-                "kernel has none; gemma-2 waits): ROADMAP.md Queue A item 13"
-            )
-        if int(q_offset) != 0:
-            raise NotImplementedError(
-                "gqa_attention on the card takes no query offset (the flash "
-                "kernel has none): ROADMAP.md Queue A item 13"
-            )
-        return _flash(q, k, v, causal, window)
+        return _flash(q, k, v, causal, window, float(attn_softcap),
+                      int(q_offset))
 
     kpos = torch.arange(k.shape[1], device=q.device)
     qpos = torch.arange(sq, device=q.device) + q_offset
@@ -298,13 +373,14 @@ def decode_attention(
 
 
 # ------------------------------------------------------------------- mlp
+def swiglu_spec(d: int, d_ff: int) -> Dict[str, Dict[str, Leaf]]:
+    return {"wi": dense_spec(d, d_ff), "wg": dense_spec(d, d_ff),
+            "wo": dense_spec(d_ff, d)}
+
+
 def swiglu_init(gen: torch.Generator, d: int, d_ff: int, dtype=torch.float32,
                 device: DeviceLike = None):
-    return {
-        "wi": dense_init(gen, d, d_ff, dtype, device),
-        "wg": dense_init(gen, d, d_ff, dtype, device),
-        "wo": dense_init(gen, d_ff, d, dtype, device),
-    }
+    return init_leaves(swiglu_spec(d, d_ff), gen, dtype, device)
 
 
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,16 @@
 """Decoder-only transformer LM of the port: the serving half (prefill and
-decode) for dense configs, GQA/RoPE/RMSNorm/SwiGLU, tied embeddings.
+decode), dense and MoE (:mod:`.moe`), GQA/RoPE/RMSNorm/SwiGLU, gemma-2's
+local/global alternation and logit softcaps, tied embeddings. One code
+path covers the five LM archs of the reference.
 
 Parameters are held by a :class:`TransformerLM` (an ``nn.Module``) in the
 reference's stacked layout: ``embed`` [V, D], ``layers`` with every leaf
 [L, ...], ``final_norm``. The layer loop is a Python loop over that stack
 (the reference's ``lax.scan``). Prefill attention goes through
 :func:`repro_torch.models.layers.gqa_attention`, so on the card every layer
-launches the flash kernel once; decode attends over the cache with the
-plain masked softmax, as the reference's single-device branch does.
+launches the flash kernel once (with gemma-2's window and softcap); decode
+attends over the cache with the plain masked softmax, as the reference's
+single-device branch does.
 
 API (the reference's; ``params`` is a :class:`TransformerLM` or its
 nested dict):
@@ -15,8 +18,8 @@ nested dict):
     prefill(params, cfg, tokens, max_len)       -> (last_logits, cache)
     decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
 
-Not ported yet (ROADMAP.md Queue A item 13): MoE configs (``cfg.moe``
-raises), ``train_loss`` and training, the sequence-sharded decode.
+Not ported yet (ROADMAP.md Queue A item 13): ``train_loss`` and
+training.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.dist.collectives import sharded_vocab_lookup
 from repro_torch.dist.sharding import mesh_axis_names
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 __all__ = ["KVCache", "TransformerLM", "init_lm", "prefill", "decode_step"]
 
@@ -55,28 +59,12 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP.md Queue A "
-            "item 13)"
-        )
-
-
 def _layer_windows(cfg: LMConfig) -> torch.Tensor:
     """Per-layer attention window (big = global). Gemma-2: odd layers local."""
     if not cfg.local_global:
         return torch.full((cfg.n_layers,), _BIG_WINDOW, dtype=torch.int32)
     idx = torch.arange(cfg.n_layers)
     return torch.where(idx % 2 == 0, cfg.window, _BIG_WINDOW).to(torch.int32)
-
-
-def _stack(trees):
-    """A list of equal nested dicts -> one nested dict of stacked leaves."""
-    first = trees[0]
-    if isinstance(first, torch.Tensor):
-        return torch.stack(trees)
-    return {k: _stack([t[k] for t in trees]) for k in first}
 
 
 def _layer(stacked, i: int):
@@ -89,31 +77,58 @@ def _layer(stacked, i: int):
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
+def _layer_spec(cfg: LMConfig):
+    """One layer's parameters (the reference's ``layer_init``), in the
+    order they are drawn."""
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    spec = {
+        "ln1": L.rmsnorm_spec(d),
+        "ln2": L.rmsnorm_spec(d),
+        "wq": L.dense_spec(d, hq * dh),
+        "wk": L.dense_spec(d, hkv * dh),
+        "wv": L.dense_spec(d, hkv * dh),
+        "wo": L.dense_spec(hq * dh, d),
+    }
+    if cfg.moe:
+        spec["moe"] = moe_lib.moe_spec(d, cfg.d_ff, cfg.n_experts)
+    else:
+        spec["mlp"] = L.swiglu_spec(d, cfg.d_ff)
+    return spec
+
+
 def init_lm(gen: torch.Generator, cfg: LMConfig,
             device: DeviceLike = None) -> TransformerLM:
-    """Random weights from ``gen`` on ``device`` (``None``: the card)."""
-    _dense_only(cfg)
+    """Random weights from ``gen`` on ``device`` (``None``: the card).
+
+    Each stacked ``[L, ...]`` leaf is allocated once and filled layer by
+    layer, the draws made a block at a time on the generator's device (a
+    generator on the card keeps them there), so the weights never exist
+    twice nor whole in f32: Moonlight's 55.4 GB in bf16 need 55.4 GB."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
     embed = L.embedding_init(gen, cfg.vocab, cfg.d_model, dt, dev)["table"]
-
-    def layer_init():
-        return {
-            "ln1": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "ln2": L.rmsnorm_init(cfg.d_model, dt, dev),
-            "wq": L.dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim, dt, dev),
-            "wk": L.dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim, dt, dev),
-            "wv": L.dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim, dt, dev),
-            "wo": L.dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model, dt, dev),
-            "mlp": L.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt, dev),
-        }
-
-    stacked = _stack([layer_init() for _ in range(cfg.n_layers)])
+    spec = _layer_spec(cfg)
+    stacked = L.alloc_leaves(spec, dt, dev, lead=(cfg.n_layers,))
+    for i in range(cfg.n_layers):
+        L.fill_leaves_(stacked, spec, gen, index=i)
     return TransformerLM(
         {"embed": embed, "layers": stacked,
          "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev)},
         cfg,
     )
+
+
+def _ffn(p, cfg: LMConfig, y):
+    """The layer's feed-forward half: SwiGLU, or the MoE block (its aux
+    loss is a training quantity and is dropped here, as the reference's
+    serving path drops it)."""
+    if cfg.moe:
+        m, _ = moe_lib.moe_apply(
+            p["moe"], y, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+        )
+        return m
+    return L.swiglu(p["mlp"], y)
 
 
 # --------------------------------------------------------------------------
@@ -159,7 +174,6 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int):
     """tokens: [B, S] ints on the parameters' device (numpy is moved
     there); returns (last-position logits [B, V], KVCache with
     ``max_len`` positions, the first S filled)."""
-    _dense_only(cfg)
     tree = L.as_tree(params)
     embed = tree["embed"]
     dev = embed.device
@@ -180,7 +194,7 @@ def prefill(params, cfg: LMConfig, tokens, max_len: int):
         h, k, v = _attn_full(p, cfg, y, int(windows[i]), positions)
         x = x + h
         y = L.rmsnorm(p["ln2"], x)
-        x = x + L.swiglu(p["mlp"], y)
+        x = x + _ffn(p, cfg, y)
         kc[i, :, :s] = k.to(dt)
         vc[i, :, :s] = v.to(dt)
     x = L.rmsnorm(tree["final_norm"], x)
@@ -200,7 +214,6 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token, pos):
     cache is returned; its values equal the reference's functional
     update. The cache's sequence is split over mesh axes by flash-decode
     when ``rules["kv_seq"]`` maps to axes of the active mesh."""
-    _dense_only(cfg)
     tree = L.as_tree(params)
     embed = tree["embed"]
     dev = embed.device
@@ -228,7 +241,7 @@ def decode_step(params, cfg: LMConfig, cache: KVCache, token, pos):
         )
         x = x + L.dense(p["wo"], out.reshape(b, 1, -1))
         y2 = L.rmsnorm(p["ln2"], x)
-        x = x + L.swiglu(p["mlp"], y2)
+        x = x + _ffn(p, cfg, y2)
     x = L.rmsnorm(tree["final_norm"], x)
     logits = x[:, 0] @ embed.T.to(x.dtype)
     logits = L.softcap(logits, cfg.final_softcap)

@@ -1119,10 +1119,78 @@ def test_gqa_attention_on_the_card_launches_the_kernel(cuda_device):
     want = L.gqa_attention(qb.cpu(), kb.cpu(), vb.cpu())
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2e-2,
                                atol=2e-2)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        L.gqa_attention(q, k, v, attn_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="offset"):
-        L.gqa_attention(q, k, v, q_offset=3)
+    # a softcap and a query offset launch the kernel too, and match the
+    # plain path (they raised before the kernels had them)
+    for kw in (dict(attn_softcap=30.0), dict(q_offset=3),
+               dict(attn_softcap=30.0, window=9, q_offset=5)):
+        launches = flash_attention_fwd.launches
+        got = L.gqa_attention(q, k, v, **kw)
+        assert flash_attention_fwd.launches == launches + 1
+        want = L.gqa_attention(q.cpu(), k.cpu(), v.cpu(), **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# the softcap and the query offset in both kernels: every padded head dim
+# the f32 kernel has a softcap copy of (and the two wgmma takes), in both
+# types; Sq != Sk both ways, offsets that put rows past the last key, and
+# windows around the tile edges
+CAP_OFFSET_CASES = [
+    pytest.param(3, sq, sk, d, dtype, causal, window, cap, off,
+                 id=f"{str(dtype)[6:]}-d{d}-{sq}x{sk}-off{off}-"
+                    f"{'causal' if causal else 'full'}-w{window}-cap{cap}")
+    for dtype in (torch.float32, torch.bfloat16)
+    for d in (32, 64, 128, 256)
+    for sq, sk, off in ((200, 200, 0), (70, 300, 230), (129, 500, 64),
+                        (256, 1280, 1024), (300, 200, 7))
+    for causal, window in ((True, None), (True, 65), (False, None),
+                           (False, 33))
+    for cap in (0.0, 50.0)
+    if cap or off
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,window,cap,off",
+                         CAP_OFFSET_CASES)
+def test_flash_kernels_with_cap_and_offset_match_plain(
+        cuda_device, bh, sq, sk, d, dtype, causal, window, cap, off):
+    q, k, v = _flash_case(bh, sq, sk, d, dtype, cuda_device,
+                          seed=sq + 7 * sk + d + off)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    launches = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, **kw)
+    assert flash_attention_fwd.launches == launches + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    if dtype == torch.bfloat16:
+        # the same operands in f32: the tile ranges and masks with the
+        # offset, without the output's rounding
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        torch.testing.assert_close(flash_attention_fwd(qf, kf, vf, **kw),
+                                   flash_attention_plain(qf, kf, vf, **kw),
+                                   **FLASH_TOL[torch.float32])
+
+
+def test_the_cap_changes_the_answer_and_the_offset_matches_a_slice(
+        cuda_device):
+    """A cap of 1 changes every row that sees more than one key, against
+    the same call without the cap; the last 256 rows of a causal prefill
+    of 1280 tokens equal those rows alone at q_offset 1024, on both
+    kernels."""
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 256)):
+        q, k, v = _flash_case(2, 1280, 1280, d, dtype, cuda_device, seed=d)
+        whole = flash_attention_fwd(q, k, v, causal=True, window=512)
+        tail = flash_attention_fwd(q[:, 1024:].contiguous(), k, v,
+                                   causal=True, window=512, q_offset=1024)
+        torch.testing.assert_close(tail.float(), whole[:, 1024:].float(),
+                                   **FLASH_TOL[dtype])
+        uncapped = flash_attention_fwd(q, k, v, causal=True)
+        capped = flash_attention_fwd(q, k, v, causal=True, softcap=1.0)
+        moved = (capped.float() - uncapped.float()).abs().amax(-1)
+        # row 0 sees key 0 alone: its softmax is 1 whatever the cap
+        assert bool((moved[:, 0] == 0).all())
+        assert bool((moved[:, 1:] > 1e-3).all())
 
 
 def test_reduced_models_on_the_card_match_the_cpu(cuda_device):
@@ -1493,3 +1561,66 @@ def test_flash_decode_on_a_mesh_of_the_card_matches_the_dense_decode(
         got = L.decode_attention(q, k, v, 41, window=30,
                                  kv_seq_axes=("model",))
     torch.testing.assert_close(got, dense, rtol=2e-5, atol=2e-5)
+
+
+def test_reduced_lm_family_on_the_card_matches_the_cpu(cuda_device):
+    """gemma-2 (window, caps), Mistral-NeMo and Kimi-K2 ``reduced()`` in
+    f32 on the card by default against the same weights on the CPU: every
+    prefill layer launches the flash kernel; logits within 1e-4 after the
+    prefill and two decode steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+
+    for arch in ("gemma2-2b", "mistral-nemo-12b", "kimi-k2-1t-a32b"):
+        cfg = get_arch(arch).reduced()
+        lm = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+        lm_cpu = T.TransformerLM({**lm.tree()}, cfg).to("cpu")
+        tokens = lm_batch(cfg, 2, 40, seed=0, step=0)["tokens"]
+        launches = flash_attention_fwd.launches
+        logits, cache = T.prefill(lm, cfg, tokens, 42)
+        assert flash_attention_fwd.launches == launches + cfg.n_layers
+        want, want_cache = T.prefill(lm_cpu, cfg, tokens, 42)
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+        for pos in (40, 41):
+            tok = want.argmax(-1, keepdim=True)
+            logits, cache = T.decode_step(lm, cfg, cache, tok.cuda(), pos)
+            want, want_cache = T.decode_step(lm_cpu, cfg, want_cache, tok,
+                                             pos)
+            torch.testing.assert_close(logits.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+
+
+def test_bf16_moonlight_reduced_prefill_on_the_card_matches_the_cpu(
+        cuda_device):
+    """The MoE block in bf16 on the card (``index_put_``, ``bmm``) against
+    the CPU with the same weights. The card's attention keeps an f32
+    softmax where the CPU's plain path rounds scores and probabilities to
+    bf16 (hence 2e-2, as ``gqa_attention``'s bf16 check); the first
+    layer's router, on the same f32 tokens, routes them exactly alike."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").reduced(),
+                              dtype="bfloat16")
+    lm = T.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    lm_cpu = T.TransformerLM({**lm.tree()}, cfg).to("cpu")
+    assert lm.tree()["layers"]["moe"]["router"].dtype == torch.float32
+    tokens = lm_batch(cfg, 2, 32, seed=0, step=0)["tokens"]
+    launches = flash_attention_fwd.launches
+    logits, _ = T.prefill(lm, cfg, tokens, 32)
+    assert flash_attention_fwd.launches == launches + cfg.n_layers
+    want, _ = T.prefill(lm_cpu, cfg, tokens, 32)
+    torch.testing.assert_close(logits.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    # routing in f32 (bf16 logits tie often: one rounding apart, the two
+    # devices could order a tie differently)
+    x = torch.randn((64, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    p = {k: t[0] for k, t in lm.tree()["layers"]["moe"].items()}
+    r = M.moe_route(x.cuda(), p["router"], top_k=cfg.top_k, capacity=16)
+    r_cpu = M.moe_route(x, p["router"].cpu(), top_k=cfg.top_k, capacity=16)
+    assert torch.equal(r.top_e.cpu(), r_cpu.top_e)
+    assert torch.equal(r.keep.cpu(), r_cpu.keep)

@@ -1,14 +1,19 @@
 """The port's flash-attention plain version and wrapper (CPU) against the
 JAX package: its oracle ``ref.flash_attention_ref`` on the reference's own
 sweep (tests/test_flash_attention.py), and its Pallas kernel in interpret
-mode. Inputs are made with numpy and handed to both packages.
+mode; with a logit softcap and a query offset, which the Pallas kernel
+does not have, its model layer ``gqa_attention`` (and so is the
+flex_attention call that chip_smoke.py times as the capped sets' library
+call). Inputs are made with numpy and handed to both packages.
 
 Tolerances are the reference's own (2e-6 in f32, 2e-2 in bf16): the two
 packages' CPU sums run in other orders, and these shapes stay inside them.
 The CUDA kernel is held to the same plain version on the card in
 tests/test_torch_cuda.py."""
 
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_fwd as jax_flash
+from repro.models import layers as RL
 from repro_torch.kernels import flash_attention_fwd as exported
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (
@@ -238,3 +244,99 @@ def test_the_tf32_rounding_is_to_nearest_ties_away():
     hi, lo = _tf32_split(x)
     assert hi.tolist() == [1 + 2.0**-10, 1.0, -(1 + 2.0**-10), 3.0]
     assert ((hi + lo - x).abs() <= 2.0**-22 * x.abs()).all()
+
+
+# --------------------------------------------- the softcap and the offset
+# The reference's Pallas kernel has neither: its models/layers.py
+# _attn_core caps the scaled scores before the mask and shifts the query
+# positions by q_offset. The plain version is held to the reference's
+# gqa_attention (one kv head a query head, [B·H] as the head axis) in f32.
+CAP_CASES = [
+    # (bh, sq, sk, d, causal, window, softcap, q_offset)
+    (2, 64, 64, 16, True, None, 50.0, 0),      # gemma-2's cap, causal
+    (2, 64, 64, 16, True, 24, 50.0, 0),        # cap + gemma-2's window
+    (1, 48, 48, 32, False, None, 5.0, 0),      # a cap that binds, bidirectional
+    (2, 16, 80, 16, True, None, 0.0, 64),      # decode-like: Sq < Sk, offset
+    (2, 16, 80, 16, True, 20, 30.0, 64),       # offset + window + cap
+    (1, 40, 100, 8, True, 7, 0.0, 13),         # offset leaving keys past the last row
+    (1, 40, 30, 8, True, 5, 20.0, 3),          # Sq + offset > Sk: rows the mask empties
+    (2, 33, 57, 16, False, None, 0.0, 9),      # non-causal: the offset moves nothing
+    (1, 20, 20, 16, False, 6, 10.0, 4),        # window without causal
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window,cap,off", CAP_CASES)
+def test_plain_with_cap_and_offset_matches_the_reference_layer(
+        bh, sq, sk, d, causal, window, cap, off):
+    arrays = _case(bh, sq, sk, d, seed=sq + sk)
+    got = flash_attention_fwd(*_torch(*arrays), causal=causal, window=window,
+                              softcap=cap, q_offset=off)
+    # [BH, S, D] -> [1, S, BH, D]: every (batch, head) row a head
+    q, k, v = (jnp.asarray(a.transpose(1, 0, 2))[None] for a in arrays)
+    want = RL.gqa_attention(q, k, v, causal=causal, window=window,
+                            attn_softcap=cap, q_offset=off)
+    want = np.asarray(want)[0].transpose(1, 0, 2)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# chip_smoke.py times flex_attention as the library call of the capped
+# operand sets; here it runs eagerly and is held to the reference's layer.
+# A row that the mask empties (Sq + q_offset > Sk with a window) is left
+# out: flex_attention gives it zeros, the reference the mean of its keys
+# (masked scores are a finite -1e30); no operand set of the script has one.
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window,cap,off", [
+    c for c in CAP_CASES if c[6] > 0 and c[1] + c[7] <= c[2]])
+def test_chip_smokes_flex_library_computes_the_reference_capped_attention(
+        bh, sq, sk, d, causal, window, cap, off):
+    arrays = _case(bh, sq, sk, d, seed=sq + sk)
+    q4, k4, v4 = (t[None] for t in _torch(*arrays))
+    library, _ = _chip_smoke().flex_library(q4, k4, v4, causal, window, cap,
+                                            off, compile=False)
+    q, k, v = (jnp.asarray(a.transpose(1, 0, 2))[None] for a in arrays)
+    want = RL.gqa_attention(q, k, v, causal=causal, window=window,
+                            attn_softcap=cap, q_offset=off)
+    want = np.asarray(want)[0].transpose(1, 0, 2)
+    np.testing.assert_allclose(library()[0].numpy(), want, **F32)
+
+
+def test_no_cap_and_no_offset_is_the_reference_oracle_bit_for_bit():
+    q, k, v = _torch(*_case(2, 64, 64, 16, seed=4))
+    for causal, window in ((True, None), (True, 24), (False, None)):
+        assert torch.equal(
+            flash_attention_plain(q, k, v, causal=causal, window=window,
+                                  softcap=0.0, q_offset=0),
+            flash_attention_plain(q, k, v, causal=causal, window=window))
+
+
+def test_the_window_shortcut_counts_the_offset():
+    # window >= q_offset + Sq masks nothing; one less masks key 0 for the
+    # last row, so the shortcut must not drop it
+    q, k, v = _torch(*_case(1, 16, 64, 16, seed=6))
+    none = flash_attention_fwd(q, k, v, causal=False, q_offset=40)
+    assert torch.equal(
+        flash_attention_fwd(q, k, v, causal=False, window=56, q_offset=40),
+        none)
+    edge = flash_attention_fwd(q, k, v, causal=False, window=55, q_offset=40)
+    assert not torch.equal(edge[:, -1], none[:, -1])
+    assert torch.equal(edge[:, :-1], none[:, :-1])
+
+
+@pytest.mark.parametrize("bad", [
+    dict(q_offset=-1),
+    dict(q_offset=2**31 - 8),
+    dict(softcap=-1.0),
+    dict(softcap=float("inf")),
+    dict(softcap=float("nan")),
+])
+def test_wrapper_rejects_a_negative_offset_or_cap(bad):
+    q, k, v = _torch(*_case(1, 8, 8, 8))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v, **bad)

@@ -1,11 +1,13 @@
-"""The port's model layers and SmolLM-135M serving (prefill + decode) on
-the CPU against the JAX package, with the same inputs (numpy seeds) and
-the same weights (the reference's ``init_lm`` carried across by
-``repro_torch.convert``).
+"""The port's model layers and the LM family's serving (prefill + decode:
+SmolLM-135M, gemma-2, Mistral-NeMo, Moonlight and Kimi-K2 at their
+``reduced()`` sizes) on the CPU against the JAX package, with the same
+inputs (numpy seeds) and the same weights (the reference's ``init_lm``
+carried across by ``repro_torch.convert``).
 
 Tolerances: layers 1e-5 (f32; the packages' CPU kernels sum in other
-orders), the reduced SmolLM's logits and KV cache 1e-4 (two layers of
-those differences). Configs, shapes and data are compared exactly."""
+orders), the reduced models' logits and KV cache 1e-4 (two layers of
+those differences; for the MoE archs the routing is the same, so no
+token changes experts). Configs, shapes and data are compared exactly."""
 
 import dataclasses
 
@@ -167,9 +169,26 @@ def test_configs_equal_the_reference_field_by_field():
         (ref_moe.params_dense, ref_moe.params_active)
 
 
+LM_ARCHS = ("gemma2-2b", "mistral-nemo-12b", "moonshot-v1-16b-a3b",
+            "kimi-k2-1t-a32b")
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_family_configs_equal_the_reference_field_by_field(arch):
+    mine, theirs = get_arch(arch), ref_get_arch(arch)
+    assert dataclasses.asdict(mine.CONFIG) == dataclasses.asdict(theirs.CONFIG)
+    assert dataclasses.asdict(mine.reduced()) == dataclasses.asdict(theirs.reduced())
+    assert [(s.name, s.kind, s.params) for s in mine.SHAPES] == \
+        [(s.name, s.kind, s.params) for s in theirs.SHAPES]
+    cfg, ref_cfg = mine.CONFIG, theirs.CONFIG
+    assert (cfg.params_dense, cfg.params_active) == \
+        (ref_cfg.params_dense, ref_cfg.params_active)
+
+
 def test_registry_has_the_ported_archs_and_names_the_queue_for_the_rest():
-    assert set(list_archs()) == {"pir-ct", "smollm-135m", "bert4rec"}
-    for arch in ("gemma2-2b", "dlrm-rm2", "kimi-k2-1t-a32b"):
+    assert set(list_archs()) == {"pir-ct", "smollm-135m", "bert4rec",
+                                 *LM_ARCHS}
+    for arch in ("gcn-cora", "dlrm-rm2", "fm"):
         with pytest.raises(KeyError, match="Queue A item 13"):
             get_arch(arch)
     with pytest.raises(KeyError, match="unknown"):
@@ -265,11 +284,13 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported(
         T.init_lm(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.lm_params_from_numpy(convert.lm_params_to_numpy(model), cfg)
+    # a MoE config initialises and prefills on the CPU (it raised before
+    # the MoE block was ported)
     moe = dataclasses.replace(cfg, moe=True, n_experts=4, top_k=2)
-    for call in (lambda: T.init_lm(torch.Generator(), moe, device=CPU),
-                 lambda: T.prefill(model, moe, tokens, 16)):
-        with pytest.raises(NotImplementedError, match="Queue A item 13"):
-            call()
+    moe_model = T.init_lm(torch.Generator(), moe, device=CPU)
+    assert "moe" in moe_model.tree()["layers"]
+    logits, _ = T.prefill(moe_model, moe, tokens, 16)
+    assert logits.shape == (2, moe.vocab) and torch.isfinite(logits).all()
     # kv_seq_axes with no mesh active: the dense result, exactly
     q, k, v = (_t(_rand(s, 30 + i)) for i, s in enumerate(
         ((1, 1, 2, 8), (1, 4, 2, 8), (1, 4, 2, 8))))
@@ -279,3 +300,49 @@ def test_entry_points_default_to_the_card_and_refuse_what_is_not_ported(
     _, cache = T.prefill(model, cfg, tokens, 16)
     with pytest.raises(ValueError, match="outside"):
         T.decode_step(model, cfg, cache, tokens[:, :1], 16)
+
+
+# ------------------------------------------------------ the rest of the LMs
+@pytest.fixture(scope="module", params=LM_ARCHS)
+def lm_arch(request):
+    arch = request.param
+    ref_cfg, cfg = ref_get_arch(arch).reduced(), get_arch(arch).reduced()
+    params = RT.init_lm(jax.random.key(3), ref_cfg)
+    model = convert.lm_params_from_numpy(jax.tree.map(np.asarray, params),
+                                         cfg, device=CPU)
+    tokens = lm_batch(cfg, 2, 20, seed=1, step=0)["tokens"]
+    return arch, ref_cfg, cfg, params, model, tokens
+
+
+def test_prefill_then_four_decode_steps_match_the_reference(lm_arch):
+    """gemma-2's window (8 in ``reduced()``, so 20 tokens are masked by it)
+    and caps, Mistral-NeMo's rope base, the MoE archs' routing."""
+    _, ref_cfg, cfg, params, model, tokens = lm_arch
+    want, want_cache = RT.prefill(params, ref_cfg, jnp.asarray(tokens), 24)
+    got, cache = T.prefill(model, cfg, tokens, 24)
+    _close(got, want, LM_TOL)
+    _close(cache.k, want_cache.k, LM_TOL)
+    _close(cache.v, want_cache.v, LM_TOL)
+    for pos in range(20, 24):
+        tok = np.argmax(np.asarray(want), axis=-1)[:, None].astype(np.int32)
+        want, want_cache = RT.decode_step(params, ref_cfg, want_cache,
+                                          jnp.asarray(tok), pos)
+        got, cache = T.decode_step(model, cfg, cache, tok, pos)
+        _close(got, want, LM_TOL)
+    _close(cache.k, want_cache.k, LM_TOL)
+    _close(cache.v, want_cache.v, LM_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_lm_has_the_reference_layout_and_dtypes(lm_arch, dtype):
+    arch, ref_cfg, cfg, _, _, _ = lm_arch
+    ref_cfg = dataclasses.replace(ref_cfg, dtype=dtype)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = T.init_lm(torch.Generator().manual_seed(0), cfg, device=CPU)
+    want = jax.eval_shape(lambda: RT.init_lm(jax.random.key(0), ref_cfg))
+    assert jax.tree.map(
+        lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+        model.tree()) == jax.tree.map(
+        lambda a: (tuple(a.shape), str(a.dtype)), want)
+    if cfg.moe:
+        assert model.tree()["layers"]["moe"]["router"].dtype == torch.float32
