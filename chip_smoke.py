@@ -33,7 +33,15 @@ Moonlight 16B-A3B (48 MoE layers of 64 experts, 1 x 4096 tokens, the
 dropped assignments a layer; ``reduced()`` routed alike on the card and
 the CPU), one layer of Kimi-K2 (384 experts, 33.8 GB) and one Moonlight
 MoE block on the (2, 4) mesh of the card, its experts views of the global
-weights. Builds the CUDA kernels from the
+weights; then the other recommenders at full table size (FM's 39·10^6
+rows, DLRM-RM2's 26·10^6 x 64 words, DIEN's 10^6 items), each scored at
+a batch of 512 against the CPU, its retrieval tower against 10^6
+candidates, and its lookups fetched by Sparse-PIR (DLRM through the
+serving pipeline and its cache), bit-equal to the plain scores;
+BERT4Rec's masked-item loss; and the GCN at ogb_products' shape
+(2.45·10^6 nodes, 61.9·10^6 edges; unsharded and on the (2, 4) mesh) and
+at its Cora, sampled Reddit-sized and molecule shapes. Builds the CUDA
+kernels from the
 nine sources in this tree (flash attention has two: bf16 at head dims 64
 and 128 on wgmma, everything else on the TF32 tensor cores through
 mma.sync in three passes; the Sparse-PIR index compaction in front of the
@@ -61,6 +69,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -3111,6 +3120,570 @@ def moe_mesh_moonshot(dev, card, read_counts, reset_counts):
     return counts
 
 
+# ----------------------------------------- the other recommenders, the GCN
+# device ms of the recommender and GCN phases, by kernel
+MODEL_SPLIT = {
+    "xor_fold": ["xor_fold"],
+    "gather_xor": ["gather_prep", "gather_xor"],
+    "indices_from_mask": ["ifm_"],
+    "flash_fwd_kernel": ["flash_fwd_kernel"],
+    "sort": ["sort", "Sort", "radix"],
+    "segment_reduce": ["segment_reduce"],
+    "matmul": ["gemm", "Gemm", "nvjet", "cutlass", "xmma"],
+    "gather_index": ["index", "gather", "Index"],
+}
+RECSYS_TOL = {"rtol": 1e-4, "atol": 1e-4}
+RECSYS_BATCH = 512          # serve_p99's batch
+
+
+def timed_s(fn):
+    """``fn()`` once as a warm-up, then once on the host clock ending in
+    ``torch.cuda.synchronize()``: (its result, seconds)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def close_to_cpu(label, got, want, tol=RECSYS_TOL):
+    """The card's ``got`` against the CPU's ``want`` within ``tol``:
+    finite, the same shape; returns the largest absolute error."""
+    got = got.detach().cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, or not finite")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, **tol):
+        raise AssertionError(f"{label}: card vs CPU max abs err {err}")
+    return err
+
+
+def bit_equal(label, private, plain):
+    """Private scores against plain ones, bit for bit."""
+    if private.shape != plain.shape or not torch.equal(
+            private.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError(f"{label}: private scores differ from the "
+                             "plain-lookup scores")
+    return True
+
+
+def _rows(batch, lo, hi):
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def lookup_chunk(k: int, n: int) -> int:
+    """Ids a staged retrieve takes at once so that its Sparse-PIR plan over
+    ``n`` rows stays within the draws the card takes in one call
+    (``sparse.MAX_CARD_DRAWS``; FM's 39 x 39·10^6 = 1.52·10^9 do not):
+    ``k`` ids in equal chunks."""
+    from repro_torch.core.sparse import MAX_CARD_DRAWS
+
+    parts = -(-k * n // MAX_CARD_DRAWS)
+    return -(-k // max(1, parts))
+
+
+def private_lookups(pes, gen, counted, log):
+    """A ``lookup_fn`` that fetches every id through the
+    ``PrivateEmbedding`` of its table (``pes``: data_ptr -> embedding), in
+    chunks of ``lookup_chunk`` ids, each its own staged retrieve (the same
+    answer bits and ε), logging each call's chunks and launches of the
+    wrappers in ``counted``."""
+
+    def lookup(table, ids):
+        before = {k: f_.launches for k, f_ in counted.items()}
+        forms = dict(counted["xor_fold"].kernel_launches)
+        pe = pes[table.data_ptr()]
+        flat = ids.reshape(-1)
+        chunk = lookup_chunk(flat.numel(), pe.vocab)
+        rows = torch.cat([pe.lookup(gen, part) for part in flat.split(chunk)])
+        rows = rows.reshape(*ids.shape, pe.dim)
+        torch.cuda.synchronize()
+        log.append({"ids": list(ids.shape), "chunk": chunk,
+                    "chunks": -(-flat.numel() // chunk),
+                    **{k: f_.launches - before[k]
+                       for k, f_ in counted.items()},
+                    **{f"xor_fold_{k}": c - forms[k] for k, c in
+                       counted["xor_fold"].kernel_launches.items()}})
+        return rows
+
+    return lookup
+
+
+def pipeline_lookups(pipe, log, prefix="user"):
+    """A ``lookup_fn`` through the serving pipeline: each example's ids
+    (one row of ``ids``) as one ``submit_many`` request, flushed alone;
+    the record bytes come back as f32 rows, bit for bit."""
+
+    def lookup(table, ids):
+        rows = []
+        for j, row in enumerate(ids.tolist()):
+            client = f"{prefix}{j}"
+            if not pipe.submit_many(client, row):
+                raise AssertionError("the budget refused a request")
+            hits = pipe.metrics["cache_hits"]
+            before = gather_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rows.append(pipe.flush()[client])
+            torch.cuda.synchronize()
+            log.append({"client": client, "k": len(row),
+                        "flush_s": time.perf_counter() - t,
+                        "cache_hits": pipe.metrics["cache_hits"] - hits,
+                        "launches": {k: c - before[k] for k, c in
+                                     gather_launches().items()}})
+        raw = np.ascontiguousarray(np.stack(rows))    # [B, k, 4·dim] bytes
+        return torch.from_numpy(raw.view(np.float32)).reshape(
+            *ids.shape, table.shape[1]).to(table.device)
+
+    return lookup
+
+
+def gather_launches():
+    from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
+    from repro_torch.kernels.xor_fold import xor_fold
+
+    return {"indices_from_mask": indices_from_mask.launches,
+            "gather_xor": gather_xor.launches, "xor_fold": xor_fold.launches}
+
+
+def serve_recsys(arch_id, dev, card, read_counts, reset_counts):
+    """One recommender at its full config (random weights from seed 0,
+    every table at full size on the card): (a) plain scores at
+    ``serve_p99``'s batch of 512; (b) the same weights and batch on the
+    CPU; (c) the retrieval tower at ``retrieval_cand``'s shape (one
+    example against 10^6 candidates) and at the batch of 512; (d) private
+    lookups by Sparse-PIR at the config's d, d_a and θ, bit-equal to the
+    plain scores: DLRM through the serving pipeline (each example's ids
+    one ``submit_many``, flushed alone, then the same requests from the
+    cache), FM (both tables) and DIEN (the item table) through
+    ``PrivateEmbedding``. Returns the private path's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PrivateEmbedding, SparseScheme
+    from repro_torch.core.accounting import PrivacyBudget
+    from repro_torch.data import recsys_batch
+    from repro_torch.db.store import RecordStore
+    from repro_torch.kernels.xor_fold import xor_fold
+    from repro_torch.models import recsys as R
+    from repro_torch.serve import BatchScheduler, QueryCache, ServingPipeline
+
+    label = f"serve_{arch_id.replace('-', '_')}"
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    arch = get_arch(arch_id)
+    cfg = arch.CONFIG
+    init, score = {"fm": (R.fm_init, R.fm_score),
+                   "dlrm": (R.dlrm_init, R.dlrm_score),
+                   "dien": (R.dien_init, R.dien_score)}[cfg.model]
+    model = init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    tree = model.tree()
+    tables = {k: list(tree[k].shape) for k in ("embed", "linear")
+              if k in tree}
+    line = {"phase": label, "card": card, "config": cfg.name,
+            "model": cfg.model, "embed_dim": cfg.embed_dim,
+            "n_sparse": cfg.n_sparse, "n_dense": cfg.n_dense,
+            "vocab_per_field": cfg.vocab_per_field, "seq_len": cfg.seq_len,
+            "gru_dim": cfg.gru_dim, "bot_mlp": list(cfg.bot_mlp),
+            "top_mlp": list(cfg.top_mlp), "mlp_dims": list(cfg.mlp_dims),
+            "tables": tables,
+            "table_bytes": sum(tree[k].numel() * 4 for k in tables),
+            "weights_bytes": torch.cuda.memory_allocated() - start,
+            "init_s": init_s, "batch": RECSYS_BATCH}
+
+    # (a) plain scores, (b) the CPU
+    batch = recsys_batch(cfg, RECSYS_BATCH, seed=0, step=0)
+    reset_counts()
+    plain, line["plain_s"] = timed_s(lambda: score(model, cfg, batch))
+    line["plain_launches"] = {k: c for k, c in read_counts().items() if c}
+    line["split_plain"] = device_split(lambda: score(model, cfg, batch),
+                                       MODEL_SPLIT)
+    line["max_memory_allocated_plain"] = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    host = type(model)(tree, cfg).to("cpu")
+    want = score(host, cfg, batch)
+    line["cpu_s"] = time.perf_counter() - t
+    line["card_vs_cpu"] = {"max_abs_err": close_to_cpu(label, plain, want),
+                           "tolerance": RECSYS_TOL}
+
+    # (c) the retrieval tower against 10^6 random candidates
+    n_cand = dict(arch.SHAPES[3].params)["n_candidates"]
+    cand = torch.randn((n_cand, cfg.embed_dim),
+                       generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+    one = _rows(batch, 0, 1)
+    scores1, tower1_s = timed_s(lambda: R.retrieval_scores(
+        R.user_vector(model, cfg, one), cand))
+    err1 = close_to_cpu(label + " retrieval", scores1, R.retrieval_scores(
+        R.user_vector(host, cfg, one), cand.cpu()))
+    scores, tower_s = timed_s(lambda: R.retrieval_scores(
+        R.user_vector(model, cfg, batch), cand))
+    if scores.shape != (RECSYS_BATCH, n_cand) or not bool(
+            torch.isfinite(scores).all()):
+        raise AssertionError(f"{label}: retrieval scores {scores.shape}")
+    line["retrieval"] = {"n_candidates": n_cand, "batch_1_s": tower1_s,
+                         "batch_1_max_abs_err": err1,
+                         f"batch_{RECSYS_BATCH}_s": tower_s}
+    del host, want, cand, scores, scores1
+
+    # (d) private lookups
+    budget = PrivacyBudget(epsilon_limit=1e12)
+    d, d_a, theta = (cfg.private_lookup_d, cfg.private_lookup_da,
+                     cfg.private_lookup_theta)
+    line["private"] = priv = {"scheme": "sparse", "d": d, "d_a": d_a,
+                              "theta": theta}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.model == "dlrm":
+        # the reference example's path; no prefill_cache: one banked plan
+        # at this n is a whole plan (≈ 30 B a lookup and row)
+        table = tree["embed"]
+        store = RecordStore.from_float_table(table)
+        if store.packed.data_ptr() != table.data_ptr():
+            raise AssertionError(f"{label}: the store copied the table")
+        scheme = SparseScheme(d=d, d_a=d_a, theta=theta)
+        pipe = ServingPipeline(
+            store, scheme, scheduler=BatchScheduler(max_batch=32),
+            cache=QueryCache(scheme, store.n, max_entries=1024),
+            default_budget=lambda: budget, seed=42, device=dev)
+        examples = 4
+        few = _rows(batch, 0, examples)
+        plain_few = score(model, cfg, few)
+        warm = []
+        score(model, cfg, _rows(batch, examples, examples + 1),
+              lookup_fn=pipeline_lookups(pipe, warm, prefix="warm"))
+        first, again = [], []
+        spent0 = budget.spent_epsilon
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        private = score(model, cfg, few,
+                        lookup_fn=pipeline_lookups(pipe, first))
+        torch.cuda.synchronize()
+        priv["pass_s"] = time.perf_counter() - t
+        counts = read_counts()
+        spent1 = budget.spent_epsilon
+        t = time.perf_counter()
+        repeat = score(model, cfg, few,
+                       lookup_fn=pipeline_lookups(pipe, again))
+        torch.cuda.synchronize()
+        priv["repeat_pass_s"] = time.perf_counter() - t
+        lookups = examples * cfg.n_sparse
+        for f in first:
+            if (f["launches"]["indices_from_mask"] != d
+                    or f["launches"]["gather_xor"] != d
+                    or f["launches"]["xor_fold"] != 0 or f["cache_hits"]):
+                raise AssertionError(f"{label}: a flush launched {f}")
+        if (any(any(f["launches"].values()) for f in again)
+                or sum(f["cache_hits"] for f in again) != lookups):
+            raise AssertionError(f"{label}: the repeat pass {again}")
+        plan = next(iter(pipe.backend.planner._plans.values()))
+        priv.update({
+            "path": "ServingPipeline.submit_many", "examples": examples,
+            "lookups": lookups, "flat_bucket": plan.bucket,
+            "exec_plan": plan.describe(),
+            "path_counts": dict(pipe.backend.path_counts),
+            "flushes": first, "repeat_flushes": again,
+            "warm_up_flush_s": [f["flush_s"] for f in warm],
+            "epsilon_per_lookup": pipe.price[0],
+            "epsilon_spent_first_pass": spent1 - spent0,
+            "epsilon_spent_repeat_pass": budget.spent_epsilon - spent1,
+            "private_equals_plain_bits": bit_equal(label, private,
+                                                   plain_few),
+            "repeat_equals_plain_bits": bit_equal(label, repeat, plain_few),
+            "cache_metrics": dict(pipe.cache.metrics),
+            "store_bytes": store.nbytes,
+        })
+        if not math.isclose(priv["epsilon_spent_repeat_pass"],
+                            priv["epsilon_spent_first_pass"],
+                            rel_tol=1e-12):
+            raise AssertionError(f"{label}: the cache hits spent "
+                                 f"{priv['epsilon_spent_repeat_pass']}")
+        split_lookup = pipeline_lookups(pipe, [], prefix="split")
+        priv["split_one_example"] = device_split(
+            lambda: score(model, cfg, _rows(batch, 8, 9),
+                          lookup_fn=split_lookup), MODEL_SPLIT)
+        del pipe, store
+    else:
+        # FM: both tables, one example (39 lookups a table); DIEN: the item
+        # table, 8 examples (800 history lookups, then 8 targets)
+        examples = 1 if cfg.model == "fm" else 8
+        pes = {tree[k].data_ptr(): PrivateEmbedding.create(
+                   tree[k], scheme="sparse", d=d, d_a=d_a, theta=theta,
+                   budget=budget) for k in tables}
+        counted = {"xor_fold": xor_fold}
+        few = _rows(batch, 0, examples)
+        plain_few = score(model, cfg, few)
+        score(model, cfg, _rows(batch, examples, 2 * examples),
+              lookup_fn=private_lookups(pes, gen, counted, []))
+        log = []
+        spent0 = budget.spent_epsilon
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        private = score(model, cfg, few,
+                        lookup_fn=private_lookups(pes, gen, counted, log))
+        torch.cuda.synchronize()
+        priv["pass_s"] = time.perf_counter() - t
+        counts = read_counts()
+        calls = 2                  # FM: embed, linear; DIEN: hist, target
+        if len(log) != calls or any(c["xor_fold"] != d * c["chunks"]
+                                    for c in log):
+            raise AssertionError(f"{label}: lookup calls {log}")
+        pe = next(iter(pes.values()))
+        priv.update({
+            "path": "PrivateEmbedding.lookup", "examples": examples,
+            "lookups": sum(math.prod(c["ids"]) for c in log),
+            "calls": log, "epsilon_per_lookup": pe.epsilon_per_lookup(),
+            "epsilon_spent": budget.spent_epsilon - spent0,
+            "private_equals_plain_bits": bit_equal(label, private,
+                                                   plain_few),
+            "store_bytes": sum(p._store.nbytes for p in pes.values()),
+        })
+        priv["split_pass"] = device_split(
+            lambda: score(model, cfg, few,
+                          lookup_fn=private_lookups(pes, gen, counted, [])),
+            MODEL_SPLIT)
+        del pes
+    priv["launches"] = {k: c for k, c in counts.items() if c}
+    priv["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    del model, tree
+    lm_phase_end()
+    return counts
+
+
+def serve_bert4rec_masked_xent(dev, card, flash, read_counts, reset_counts):
+    """BERT4Rec's masked-item loss at its full config (random weights from
+    seed 0) on ``bert4rec_batch(cfg, 32)``: the card (``flash_attention.cu``
+    once a block) against the CPU. Returns the path's launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import bert4rec_batch
+    from repro_torch.models import recsys as R
+
+    t_phase = time.perf_counter()
+    lm_phase_start()
+    cfg = get_arch("bert4rec").CONFIG
+    model = R.bert4rec_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    users = 32
+    batch = bert4rec_batch(cfg, users, seed=0, step=0)
+    R.bert4rec_masked_xent(model, cfg, batch)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = R.bert4rec_masked_xent(model, cfg, batch)
+    torch.cuda.synchronize()
+    loss_s = time.perf_counter() - t
+    counts = read_counts()
+    if (flash.launches != cfg.n_blocks
+            or counts["flash_fwd_kernel"] != cfg.n_blocks):
+        raise AssertionError(f"serve_bert4rec_masked_xent: launches {counts}")
+    host = R.BERT4Rec(model.tree(), cfg).to("cpu")
+    want = R.bert4rec_masked_xent(host, cfg, batch)
+    emit({
+        "phase": "serve_bert4rec_masked_xent", "card": card,
+        "config": cfg.name, "embed_dim": cfg.embed_dim,
+        "n_blocks": cfg.n_blocks, "n_heads": cfg.n_heads,
+        "seq_len": cfg.seq_len, "items_table": [R.bert4rec_vocab(cfg),
+                                                cfg.embed_dim],
+        "users": users, "masked": int(batch["mask"].sum()),
+        "loss": float(loss), "loss_cpu": float(want),
+        "card_vs_cpu": {"max_abs_err": close_to_cpu(
+            "serve_bert4rec_masked_xent", loss, want),
+            "tolerance": RECSYS_TOL},
+        "loss_s": loss_s, "launches": {k: c for k, c in counts.items() if c},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "split": device_split(lambda: R.bert4rec_masked_xent(
+            model, cfg, batch), MODEL_SPLIT),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    del model, host
+    lm_phase_end()
+    return counts
+
+
+def _gcn_cfg(sp):
+    """gcn-cora's config with the shape's classes (as the reference's
+    cells build it)."""
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("gcn-cora").CONFIG,
+                               n_classes=sp["n_classes"])
+
+
+def _gcn_shape(name):
+    from repro_torch.configs import get_arch
+
+    return next(s.p() for s in get_arch("gcn-cora").SHAPES if s.name == name)
+
+
+def serve_gcn_products(dev, card, read_counts, reset_counts):
+    """gcn-cora's GCN at ``ogb_products``' shape (2 449 029 nodes,
+    61 859 140 edges, 100 features, 47 classes; the graph from
+    ``gnn_full_graph(seed=0, pad_to=8)``): ``gcn_apply`` and
+    ``node_xent`` on the card, then the same graph on the card's (2, 4)
+    mesh under the default rules (nodes and edges over both axes) against
+    the unsharded logits. Returns the launch counts (no kernel of the port
+    runs here)."""
+    from repro_torch.data import gnn_full_graph
+    from repro_torch.dist import DEFAULT_RULES, mesh_rules
+    from repro_torch.models import gnn as G
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    sp = _gcn_shape("ogb_products")
+    cfg = _gcn_cfg(sp)
+    t = time.perf_counter()
+    g = gnn_full_graph(sp["n_nodes"], sp["n_edges"], sp["d_feat"],
+                       sp["n_classes"], seed=0, pad_to=8)
+    graph_s = time.perf_counter() - t
+    n, e = g["feats"].shape[0], g["src"].shape[0]
+    t = time.perf_counter()
+    card_g = {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t
+    del g
+    model = G.gcn_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                       sp["d_feat"], device=dev)
+    args = [card_g[k] for k in ("feats", "src", "dst", "edge_w", "mean_deg")]
+    resident = torch.cuda.memory_allocated() - start
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, apply_s = timed_s(lambda: G.gcn_apply(model, cfg, *args))
+    loss, xent_s = timed_s(lambda: G.node_xent(
+        logits, card_g["labels"], card_g["label_mask"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if logits.shape != (n, cfg.n_classes) or not bool(
+            torch.isfinite(logits).all()) or not math.isfinite(float(loss)):
+        raise AssertionError("serve_gcn_products: logits or loss not finite")
+    split = device_split(lambda: G.gcn_apply(model, cfg, *args), MODEL_SPLIT)
+    # the mesh: every position all-gathers [N, H] (8 copies on one card)
+    # and holds a partial [N, H]: 2 x 8 x N x 47 x 4 B = 7.4 GB at the
+    # second layer
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_rules(_mesh(dev), DEFAULT_RULES):
+        sharded, mesh_s = timed_s(lambda: G.gcn_apply(model, cfg, *args))
+    mesh_peak = torch.cuda.max_memory_allocated()
+    err = float((sharded - logits).abs().max())
+    if not torch.allclose(sharded, logits, **RECSYS_TOL):
+        raise AssertionError(f"serve_gcn_products: mesh vs unsharded max "
+                             f"abs err {err}")
+    emit({
+        "phase": "serve_gcn_products", "card": card, "config": cfg.name,
+        "n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+        "aggregator": cfg.aggregator, "norm": cfg.norm, "shape": sp,
+        "nodes_padded": n, "edges_padded": e, "graph_host_s": graph_s,
+        "graph_to_card_s": to_card_s, "graph_and_weights_bytes": resident,
+        "apply_s": apply_s, "node_xent_s": xent_s, "loss": float(loss),
+        "max_memory_allocated": peak, "split_apply": split,
+        "mesh": {"shape": list(MESH_SHAPE), "rules": "DEFAULT_RULES",
+                 "apply_s": mesh_s, "max_abs_err_vs_unsharded": err,
+                 "tolerance": RECSYS_TOL,
+                 "max_memory_allocated": mesh_peak},
+        "launches": {k: c for k, c in counts.items() if c},
+        "seconds": time.perf_counter() - t_phase,
+    })
+    del model, card_g, args, logits, sharded
+    lm_phase_end()
+    return counts
+
+
+def serve_gcn_small(dev, card, read_counts, reset_counts):
+    """gcn-cora's other shapes, one phase line each: ``full_graph_sm``
+    (Cora's size, card against CPU), ``minibatch_lg`` (a Reddit-sized
+    random graph, 1024 seeds sampled with fanouts 15 and 10 on the host,
+    the subgraph on the card against the CPU) and ``molecule`` (128
+    graphs through ``batched_graph_apply``, card against CPU). Returns
+    each phase's launch counts."""
+    from repro_torch.data import (
+        NeighborSampler, gnn_full_graph, molecule_batch,
+    )
+    from repro_torch.models import gnn as G
+
+    by_path = {}
+
+    def check(label, sp, cfg, fn, args, loss, extra):
+        """``fn(model, *args)`` on the card and on the CPU with the same
+        weights, ``loss`` of its logits on each."""
+        t_phase = time.perf_counter()
+        lm_phase_start()
+        model = G.gcn_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                           sp["d_feat"], device=dev)
+        host = G.GCN(model.tree(), cfg).to("cpu")
+        on_card = [torch.from_numpy(a).to(dev) for a in args]
+        reset_counts()
+        logits, apply_s = timed_s(lambda: fn(model, *on_card))
+        value, loss_s = timed_s(lambda: loss(logits))
+        counts = read_counts()
+        want = fn(host, *(torch.from_numpy(a) for a in args))
+        emit({
+            "phase": label, "card": card, "config": cfg.name,
+            "n_layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+            "aggregator": cfg.aggregator, "shape": sp, **extra,
+            "apply_s": apply_s, "loss_s": loss_s, "loss": float(value),
+            "card_vs_cpu": {"max_abs_err": close_to_cpu(label, logits, want),
+                            "loss_err": abs(float(value) - float(loss(want))),
+                            "tolerance": RECSYS_TOL},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "split_apply": device_split(lambda: fn(model, *on_card),
+                                        MODEL_SPLIT),
+            "launches": {k: c for k, c in counts.items() if c},
+            "seconds": time.perf_counter() - t_phase + extra.get("host_s", 0),
+        })
+        by_path[label] = counts
+        del model, host, on_card
+        lm_phase_end()
+
+    def apply(m, *a):
+        return G.gcn_apply(m, m.cfg, *a)
+
+    sp = _gcn_shape("full_graph_sm")
+    g = gnn_full_graph(sp["n_nodes"], sp["n_edges"], sp["d_feat"],
+                       sp["n_classes"], seed=0)
+    check("serve_gcn_cora", sp, _gcn_cfg(sp), apply,
+          [g[k] for k in ("feats", "src", "dst", "edge_w", "mean_deg")],
+          lambda lg: G.node_xent(lg, g["labels"], g["label_mask"]), {})
+
+    sp = _gcn_shape("minibatch_lg")
+    fanouts = (sp["fanout1"], sp["fanout2"])
+    t = time.perf_counter()
+    sampler = NeighborSampler.random_graph(
+        sp["n_nodes"], sp["n_edges"] // sp["n_nodes"], sp["d_feat"],
+        sp["n_classes"], fanouts=fanouts, seed=0)
+    graph_s = time.perf_counter() - t
+    seeds = np.random.default_rng(0).choice(sp["n_nodes"], sp["batch_nodes"],
+                                            replace=False)
+    t = time.perf_counter()
+    sub = sampler.sample(seeds, step=0)
+    sample_s = time.perf_counter() - t
+    shapes = NeighborSampler.subgraph_shapes(sp["batch_nodes"], *fanouts,
+                                             sp["d_feat"])
+    if (sub["nodes"].shape[0], sub["src"].shape[0]) != shapes:
+        raise AssertionError(f"serve_gcn_minibatch: subgraph {shapes}")
+    del sampler
+    check("serve_gcn_minibatch", sp, _gcn_cfg(sp), apply,
+          [sub[k] for k in ("feats", "src", "dst", "edge_w")],
+          lambda lg: G.node_xent(lg, sub["labels"], sub["seed_mask"]),
+          {"avg_degree": sp["n_edges"] // sp["n_nodes"],
+           "graph_host_s": graph_s, "sample_host_s": sample_s,
+           "host_s": graph_s + sample_s, "sub_nodes": shapes[0],
+           "sub_edges": shapes[1]})
+
+    sp = _gcn_shape("molecule")
+    mol = molecule_batch(sp["batch"], sp["n_nodes"], sp["n_edges"],
+                         sp["d_feat"], sp["n_classes"], seed=0, step=0)
+    check("serve_gcn_molecule", sp, _gcn_cfg(sp),
+          lambda m, *a: G.batched_graph_apply(m, m.cfg, *a),
+          [mol[k] for k in ("feats", "src", "dst", "edge_w")],
+          lambda lg: G.graph_xent(lg, mol["labels"]), {})
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3881,6 +4454,21 @@ def main() -> int:
                             reset_counts)
     by_path["moe_mesh_moonshot"] = moe_mesh_moonshot(
         dev, smi, read_counts, reset_counts)
+
+    # ------------------------- 13 the other recommenders and the GCN
+    # each at its full config from a collected heap, its tables at full
+    # size: FM (39·10^6 rows), DLRM-RM2 (26·10^6 x 64 words, 6.66 GB) and
+    # DIEN (10^6 items), each with private lookups on the card; BERT4Rec's
+    # loss; the GCN at ogb_products' shape (unsharded and on the mesh) and
+    # at its other shapes
+    for arch_id in ("fm", "dlrm-rm2", "dien"):
+        by_path[f"serve_{arch_id.replace('-', '_')}"] = serve_recsys(
+            arch_id, dev, smi, read_counts, reset_counts)
+    by_path["serve_bert4rec_masked_xent"] = serve_bert4rec_masked_xent(
+        dev, smi, flash_attention_fwd, read_counts, reset_counts)
+    by_path["serve_gcn_products"] = serve_gcn_products(
+        dev, smi, read_counts, reset_counts)
+    by_path.update(serve_gcn_small(dev, smi, read_counts, reset_counts))
 
     # each kernel's count comes from its path, else the first path that
     # runs it; every path's own counts ride along. An operand set on no

@@ -1,6 +1,7 @@
-"""Config dataclasses of the port: the PIR workload's, the LM family's and
-the RecSys family's (field names, defaults and properties as in the
-reference package, so one config file can describe both packages).
+"""Config dataclasses of the port: the PIR workload's, the LM family's,
+the GNN family's and the RecSys family's (field names, defaults and
+properties as in the reference package, so one config file can describe
+both packages).
 
 Each configuration module under ``repro_torch.configs`` defines ``CONFIG``
 (the full-scale config), ``SHAPES`` (its shape cells) and ``reduced()``
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
-__all__ = ["LMConfig", "RecSysConfig", "PIRConfig", "ShapeSpec"]
+__all__ = ["LMConfig", "GNNConfig", "RecSysConfig", "PIRConfig", "ShapeSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,18 @@ class LMConfig:
             + self.d_model * self.n_experts
         )
         return attn + mlp + self.vocab * self.d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    n_classes: int
+    aggregator: str = "mean"
+    norm: str = "sym"
+    dtype: str = "float32"
+    private_feature_fetch: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

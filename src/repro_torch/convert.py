@@ -26,7 +26,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.protocol import MultiQueries, Queries
 from repro_torch.db import packing
 from repro_torch.db.store import RecordStore
-from repro_torch.models import layers, recsys, transformer
+from repro_torch.models import gnn, layers, recsys, transformer
 
 __all__ = [
     "store_from_numpy",
@@ -39,12 +39,17 @@ __all__ = [
     "lm_params_to_numpy",
     "bert4rec_params_from_numpy",
     "bert4rec_params_to_numpy",
+    "recsys_params_from_numpy",
+    "recsys_params_to_numpy",
+    "gcn_params_from_numpy",
+    "gcn_params_to_numpy",
 ]
 
 
 def _owned(a, dtype) -> np.ndarray:
     """A C-contiguous array torch may alias (read-only inputs are copied)."""
-    arr = np.ascontiguousarray(a, dtype=dtype)
+    # (ascontiguousarray makes a 0-d array 1-d: keep the shape)
+    arr = np.ascontiguousarray(a, dtype=dtype).reshape(np.shape(a))
     return arr if arr.flags.writeable else arr.copy()
 
 
@@ -237,4 +242,62 @@ def bert4rec_params_from_numpy(
 def bert4rec_params_to_numpy(params) -> dict:
     """A :class:`BERT4Rec` (or its tree) -> the reference's pytree layout
     as numpy."""
+    return _tree_to_numpy(layers.as_tree(params))
+
+
+def _check_shapes(tree: Any, spec: Any, what: str, path: str = "") -> None:
+    """Every leaf of ``tree`` has the shape its :class:`~repro_torch.models.
+    layers.Leaf` in ``spec`` gives, and the two have the same keys."""
+    if isinstance(spec, layers.Leaf):
+        if tuple(np.shape(tree)) != tuple(spec.shape):
+            raise ValueError(f"{what}: {path or 'leaf'} is {np.shape(tree)}, "
+                             f"the config wants {tuple(spec.shape)}")
+        return
+    if not isinstance(tree, dict) or set(tree) != set(spec):
+        raise ValueError(f"{what}: {path or 'the tree'} has keys "
+                         f"{sorted(tree) if isinstance(tree, dict) else tree!r}"
+                         f", the config wants {sorted(spec)}")
+    for k, v in spec.items():
+        _check_shapes(tree[k], v, what, f"{path}/{k}" if path else k)
+
+
+_RECSYS = {"fm": (recsys.fm_spec, recsys.FM),
+           "dlrm": (recsys.dlrm_spec, recsys.DLRM),
+           "dien": (recsys.dien_spec, recsys.DIEN)}
+
+
+def recsys_params_from_numpy(tree: dict, cfg, device: DeviceLike = None):
+    """The reference's ``fm_init``/``dlrm_init``/``dien_init`` pytree as
+    numpy -> an :class:`~repro_torch.models.recsys.FM`, ``DLRM`` or
+    ``DIEN`` (by ``cfg.model``) on ``device`` (``None``: the card),
+    float32, every leaf's shape checked against the config."""
+    if cfg.model not in _RECSYS:
+        raise ValueError(f"no FM/DLRM/DIEN layout for model {cfg.model!r}")
+    spec, cls = _RECSYS[cfg.model]
+    _check_shapes(tree, spec(cfg), cfg.name)
+    return cls(_tree_from_numpy(tree, resolve_device(device), torch.float32),
+               cfg)
+
+
+def recsys_params_to_numpy(params) -> dict:
+    """An FM, DLRM or DIEN (or its tree) -> the reference's pytree layout
+    as numpy."""
+    return _tree_to_numpy(layers.as_tree(params))
+
+
+def gcn_params_from_numpy(tree: dict, cfg, device: DeviceLike = None
+                          ) -> "gnn.GCN":
+    """The reference's ``gcn_init`` pytree as numpy (``w0`` ... each
+    ``{"w": [d_in, d_out]}``) -> a :class:`~repro_torch.models.gnn.GCN` on
+    ``device`` (``None``: the card), float32; the layers' shapes are
+    checked against the config (the input width is ``w0``'s)."""
+    d_feat = int(np.shape(tree["w0"]["w"])[0])
+    _check_shapes(tree, gnn.gcn_spec(cfg, d_feat), cfg.name)
+    return gnn.GCN(_tree_from_numpy(tree, resolve_device(device),
+                                    torch.float32), cfg)
+
+
+def gcn_params_to_numpy(params) -> dict:
+    """A :class:`~repro_torch.models.gnn.GCN` (or its tree) -> the
+    reference's pytree layout as numpy."""
     return _tree_to_numpy(layers.as_tree(params))

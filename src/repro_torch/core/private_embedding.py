@@ -31,6 +31,7 @@ from repro_torch.core.protocol import (
 from repro_torch.core.schemes import make_scheme
 from repro_torch.db import packing
 from repro_torch.db.store import RecordStore
+from repro_torch.models.recsys import embedding_bag
 
 __all__ = ["PrivateEmbedding"]
 
@@ -146,16 +147,15 @@ class PrivateEmbedding:
         combiner: str = "sum",
     ) -> torch.Tensor:
         """EmbeddingBag over PIR: gather each index privately, then
-        segment-reduce into bags. flat_idx/segment_ids: [nnz]."""
+        segment-reduce into bags (:func:`repro_torch.models.recsys.
+        embedding_bag`, whose segment sum gives the same bits on every
+        call, so a private bag equals the plain bag bit for bit).
+        flat_idx/segment_ids: [nnz]."""
         if combiner not in ("sum", "mean"):
             raise ValueError(f"unknown combiner {combiner!r}")
-        rows = self.lookup(gen, flat_idx)  # [nnz, dim]
-        seg = self._ids(segment_ids)
-        summed = rows.new_zeros((num_bags, self.dim)).index_add_(0, seg, rows)
-        if combiner == "sum":
-            return summed
-        cnt = torch.bincount(seg, minlength=num_bags).to(torch.float32)
-        return summed / torch.clamp(cnt, min=1.0)[:, None]
+        return embedding_bag(
+            self.table, flat_idx, segment_ids, num_bags, combiner,
+            lookup_fn=lambda table, ids: self.lookup(gen, ids))
 
     # --------------------------------------------------------------- cost
     def server_cost(self) -> dict:

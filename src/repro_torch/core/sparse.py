@@ -24,6 +24,7 @@ from repro_torch.core import chor
 from repro_torch.db import packing
 
 __all__ = [
+    "MAX_CARD_DRAWS",
     "parity_weight_logits",
     "SparsePre",
     "precompute_query_randomness",
@@ -42,6 +43,12 @@ reconstruct = chor.reconstruct
 # columns of the [B, n, d] slot ranking drawn at once: bounds the float32
 # uniforms and the int64 sort order to a few hundred MB at d = 100
 _RANK_CHUNK_COLS = 1 << 17
+
+# the most draws one torch.multinomial call makes right on a CUDA
+# generator: on an H100 with torch 2.11, 2^30 - 1 draws came out right and
+# 2^30 + 1 wrote out of bounds, which spoils the process's CUDA context. A
+# plan draws B·n column weights at once, so B·n must stay within it
+MAX_CARD_DRAWS = (1 << 30) - 1
 
 
 def parity_weight_logits(d: int, theta: float) -> np.ndarray:
@@ -95,6 +102,11 @@ def _categorical(
 ) -> torch.Tensor:
     """``count`` draws from softmax(logits). A weight at -inf gets
     probability exactly 0 — that is what enforces the parity."""
+    if gen.device.type == "cuda" and count > MAX_CARD_DRAWS:
+        raise ValueError(
+            f"a Sparse-PIR plan of {count} lookup-rows (batch x n) is past "
+            f"the {MAX_CARD_DRAWS} draws torch.multinomial takes in one call "
+            "on the card: split the lookups into smaller batches")
     logits = logits - logits[np.isfinite(logits)].max()
     probs = torch.tensor(np.exp(logits), dtype=torch.float32,
                          device=gen.device)

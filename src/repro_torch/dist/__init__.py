@@ -10,8 +10,10 @@ remesh plan, and what replica loss does to privacy).
 
 from repro_torch.dist import collectives, fault, params, sharding
 from repro_torch.dist.collectives import (
+    all_gather,
     compressed_psum,
     dequantize_int8,
+    psum_scatter,
     quantize_int8,
     sharded_record_lookup,
     sharded_table_lookup,
@@ -61,6 +63,7 @@ __all__ = [
     "P",
     "RemeshPlan",
     "ShardedArray",
+    "all_gather",
     "axis_size",
     "collectives",
     "compressed_psum",
@@ -80,6 +83,7 @@ __all__ = [
     "params",
     "pir_degraded_privacy",
     "plan_elastic_remesh",
+    "psum_scatter",
     "quantize_int8",
     "scheme_degradation",
     "sharded_record_lookup",

@@ -51,6 +51,8 @@ __all__ = [
     "dequantize_int8",
     "xor_psum",
     "sharded_record_lookup",
+    "all_gather",
+    "psum_scatter",
 ]
 
 Shards = List[torch.Tensor]
@@ -98,6 +100,53 @@ def _psum(shards, mesh, axes) -> Shards:
 
 def _pmax(shards, mesh, axes) -> Shards:
     return _all_reduce(shards, mesh, axes, torch.maximum)
+
+
+def _group(shards, mesh: Mesh, pos, axes) -> Shards:
+    """The tensors of ``pos``'s group over ``axes``, in block order, each
+    copied to ``pos``'s device."""
+    dev = mesh.device_at(pos)
+    return [shards[mesh.block_of(g, mesh.axis_names)].to(dev)
+            for g in mesh.group_of(pos, axes)]
+
+
+def all_gather(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
+               axis_names) -> Shards:
+    """Tiled all-gather over dim 0 (``jax.lax.all_gather(..., tiled=True)``
+    in ``shard_map``): each position gets its group's tensors over
+    ``axis_names`` concatenated in block order, on its own device.
+    ``mesh=None`` takes the active mesh."""
+    mesh = _resolve_mesh(mesh, "all_gather")
+    _check_shards(shards, mesh)
+    axes = _axes(axis_names)
+    return [torch.cat(_group(shards, mesh, pos, axes))
+            for pos in mesh.positions()]
+
+
+def psum_scatter(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
+                 axis_names) -> Shards:
+    """Tiled reduce-scatter over dim 0 (``jax.lax.psum_scatter(...,
+    scatter_dimension=0, tiled=True)``): the group over ``axis_names``
+    sums its tensors, and each position keeps the rows of its block,
+    ``dim0 / group size`` of them, summed in block order on its own
+    device. ``mesh=None`` takes the active mesh."""
+    mesh = _resolve_mesh(mesh, "psum_scatter")
+    _check_shards(shards, mesh)
+    axes = _axes(axis_names)
+    size = math.prod(mesh.shape[a] for a in axes)
+    rows = shards[0].shape[0]
+    if rows % size:
+        raise ValueError(f"dim 0 of {rows} does not split into {size} blocks")
+    step = rows // size
+    out = []
+    for pos in mesh.positions():
+        b = mesh.block_of(pos, axes)
+        acc = None
+        for x in _group(
+                [s[b * step:(b + 1) * step] for s in shards], mesh, pos, axes):
+            acc = x.clone() if acc is None else acc.add_(x)
+        out.append(acc)
+    return out
 
 
 # --------------------------------------------------------------------------

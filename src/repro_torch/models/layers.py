@@ -49,8 +49,10 @@ __all__ = [
     "swiglu_spec",
     "swiglu_init",
     "swiglu",
+    "gelu_mlp_spec",
     "gelu_mlp_init",
     "gelu_mlp",
+    "segment_sum",
     "ATTN_CHUNK_Q",
 ]
 
@@ -388,12 +390,14 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     return dense(params["wo"], h)
 
 
+def gelu_mlp_spec(dims) -> Dict[str, Dict[str, Leaf]]:
+    return {f"l{i}": dense_spec(dims[i], dims[i + 1])
+            for i in range(len(dims) - 1)}
+
+
 def gelu_mlp_init(gen: torch.Generator, dims, dtype=torch.float32,
                   device: DeviceLike = None):
-    return {
-        f"l{i}": dense_init(gen, dims[i], dims[i + 1], dtype, device)
-        for i in range(len(dims) - 1)
-    }
+    return init_leaves(gelu_mlp_spec(dims), gen, dtype, device)
 
 
 def gelu_mlp(params, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
@@ -403,3 +407,31 @@ def gelu_mlp(params, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
         if i < n - 1 or final_act:
             x = F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
     return x
+
+
+# ----------------------------------------------------------- segment sum
+def segment_sum(data: torch.Tensor, segment_ids,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: ``out[s] = Σ data[i]`` over the ``i`` with
+    ``segment_ids[i] == s``, for s in [0, num_segments); ids outside that
+    range are dropped. [nnz, ...] -> [num_segments, ...].
+
+    The same inputs give the same bits on every call, on the card too: the
+    rows are put in segment order by a stable sort and each segment is
+    summed in that order by one thread of ``torch.segment_reduce``. ``index_add_`` on a CUDA tensor
+    adds with atomics, in whatever order the threads arrive, so two runs,
+    or a private and a plain lookup of the same rows, could differ in
+    their last bits."""
+    seg = torch.as_tensor(segment_ids, device=data.device).reshape(-1).long()
+    if seg.shape[0] != data.shape[0]:
+        raise ValueError(f"{seg.shape[0]} segment ids for {data.shape[0]} rows")
+    # segment s is summed as s + 1; dropped ids go to one extra segment
+    # before (negative) or after (too large) them, cut off below
+    seg = torch.clamp(seg + 1, 0, num_segments + 1)
+    order = torch.argsort(seg, stable=True)
+    seg, data = seg[order], data[order]
+    bounds = torch.searchsorted(
+        seg, torch.arange(num_segments + 3, device=seg.device))
+    out = torch.segment_reduce(data, "sum", lengths=bounds.diff(),
+                               unsafe=True, initial=0)
+    return out[1:num_segments + 1]

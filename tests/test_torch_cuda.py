@@ -1624,3 +1624,213 @@ def test_bf16_moonlight_reduced_prefill_on_the_card_matches_the_cpu(
     r_cpu = M.moe_route(x, p["router"].cpu(), top_k=cfg.top_k, capacity=16)
     assert torch.equal(r.top_e.cpu(), r_cpu.top_e)
     assert torch.equal(r.keep.cpu(), r_cpu.keep)
+
+
+# ------------------------------------ the other recommenders and the GCN
+# record widths of the recommenders' tables: FM's linear table (1 word),
+# FM (10) and DIEN (18)
+@pytest.mark.parametrize("q", [8, 39, 100])
+@pytest.mark.parametrize("w", [1, 10, 18])
+def test_xor_fold_at_the_recommenders_widths_equals_plain(cuda_device, q, w):
+    """Both forms over 4100 rows at the widths of FM's and DIEN's tables,
+    q 39 one FM example's fields."""
+    db, mask = _fold_operands(q, 4100, w, cuda_device, seed=q + w)
+    _every_form(db, mask, _fold_plain(db, mask))
+
+
+@pytest.mark.parametrize("q", [8, 32])
+@pytest.mark.parametrize("w", [1, 10, 18])
+@pytest.mark.parametrize("grid_order", ["qwm", "wqm"])
+def test_gather_xor_at_the_recommenders_widths_equals_plain(cuda_device, q, w,
+                                                           grid_order):
+    store, _ = _case(4100, 4 * w, 1, cuda_device, seed=w)
+    for kind in ("ascending", "shuffled", "duplicated"):
+        idx = _gather_idx(store, q, kind, cuda_device, seed=q + w)
+        launches = gather_xor.launches
+        got = gather_xor(store.packed, idx, grid_order=grid_order)
+        assert gather_xor.launches == launches + 1
+        _same(got, gather_xor_plain(store.packed, idx))
+
+
+def test_segment_sum_gives_the_same_bits_every_run(cuda_device):
+    """Heavily duplicated segments (a few take most of the rows), summed
+    five times on the card: the same bits each time, and the CPU's values
+    within float tolerance."""
+    from repro_torch.models.layers import segment_sum
+
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(
+        rng.standard_normal((200_000, 16)).astype(np.float32))
+    seg = torch.from_numpy(rng.zipf(1.3, 200_000) % 300)
+    card = data.to(cuda_device)
+    first = segment_sum(card, seg.to(cuda_device), 300)
+    for _ in range(4):
+        _same(segment_sum(card, seg.to(cuda_device), 300), first)
+    torch.testing.assert_close(first.cpu(), segment_sum(data, seg, 300),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_private_bags_on_the_card_equal_the_plain_bags(cuda_device, combiner):
+    from repro_torch.core import PrivateEmbedding
+    from repro_torch.models import recsys as R
+
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(
+        rng.standard_normal((5000, 18)).astype(np.float32)).to(cuda_device)
+    ids = torch.from_numpy(rng.integers(0, 5000, 600)).to(cuda_device)
+    seg = torch.from_numpy(rng.zipf(1.5, 600) % 40).to(cuda_device)
+    pe = PrivateEmbedding.create(table, scheme="sparse", d=4, d_a=2,
+                                 theta=0.25)
+    folds = xor_fold.launches
+    private = pe.bag_lookup(torch.Generator(device="cuda").manual_seed(0),
+                            ids, seg, 40, combiner)
+    assert xor_fold.launches == folds + 4
+    _same(private, R.embedding_bag(table, ids, seg, 40, combiner))
+
+
+def _card_and_cpu(model):
+    """The model's weights on the card and the same tensors on the CPU."""
+    return model, type(model)(model.tree(), model.cfg).to("cpu")
+
+
+@pytest.mark.parametrize("arch", ["fm", "dlrm-rm2", "dien"])
+def test_reduced_recommenders_on_the_card_match_the_cpu(cuda_device, arch):
+    """Scores and the retrieval tower on the card by default against the
+    CPU, and the private scores (Sparse-PIR through PrivateEmbedding, one
+    store a table) equal to the plain ones bit for bit, 4 folds a call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import PrivateEmbedding
+    from repro_torch.data import recsys_batch
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch(arch).reduced()
+    init, score = {"fm": (R.fm_init, R.fm_score),
+                   "dlrm-rm2": (R.dlrm_init, R.dlrm_score),
+                   "dien": (R.dien_init, R.dien_score)}[arch]
+    model, host = _card_and_cpu(
+        init(torch.Generator(device="cuda").manual_seed(0), cfg))
+    batch = recsys_batch(cfg, 16, seed=0, step=0)
+    plain = score(model, cfg, batch)
+    assert plain.device.type == "cuda"
+    torch.testing.assert_close(plain.cpu(), score(host, cfg, batch),
+                               rtol=1e-4, atol=1e-4)
+    uv = R.user_vector(model, cfg, batch)
+    cand = torch.randn((1000, cfg.embed_dim),
+                       generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(
+        R.retrieval_scores(uv, cand.to(cuda_device)).cpu(),
+        R.retrieval_scores(R.user_vector(host, cfg, batch), cand),
+        rtol=1e-4, atol=1e-4)
+
+    gen, pes, calls = torch.Generator(device="cuda").manual_seed(2), {}, []
+
+    def lookup(table, ids):
+        pe = pes.setdefault(table.data_ptr(), PrivateEmbedding.create(
+            table, scheme="sparse", d=4, d_a=2, theta=0.25))
+        folds = xor_fold.launches
+        rows = pe.lookup(gen, ids)
+        calls.append(xor_fold.launches - folds)
+        return rows
+
+    _same(score(model, cfg, batch, lookup_fn=lookup), plain)
+    assert calls == [4] * {"fm": 2, "dlrm-rm2": 1, "dien": 2}[arch]
+
+
+def test_reduced_dlrm_through_the_pipeline_on_the_card(cuda_device):
+    """Each example's ids as one submit_many request on the card (the
+    sparse path: indices_from_mask and gather_xor d times a flush), then
+    the same requests from the cache with no launch; bit-equal scores."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import SparseScheme
+    from repro_torch.data import recsys_batch
+    from repro_torch.db.store import RecordStore
+    from repro_torch.models import recsys as R
+    from repro_torch.serve import (
+        BatchScheduler, QueryCache, ServingPipeline, ShardedBackend,
+    )
+
+    cfg = get_arch("dlrm-rm2").reduced()
+    model = R.dlrm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    table = model.tree()["embed"]
+    store = RecordStore.from_float_table(table)
+    scheme = SparseScheme(d=4, d_a=2, theta=0.25)
+    # no shared memory for the fused form: the sparse pair, as at full size
+    pipe = ServingPipeline(store, scheme,
+                           scheduler=BatchScheduler(max_batch=32),
+                           backend=ShardedBackend(store, smem_budget_bytes=1),
+                           cache=QueryCache(scheme, store.n, max_entries=256),
+                           seed=3)
+
+    def lookup(tbl, ids):
+        rows = []
+        for j, row in enumerate(ids.tolist()):
+            assert pipe.submit_many(f"user{j}", row)
+            rows.append(pipe.flush()[f"user{j}"])
+        raw = np.ascontiguousarray(np.stack(rows))
+        return torch.from_numpy(raw.view(np.float32)).reshape(
+            *ids.shape, tbl.shape[1]).to(tbl.device)
+
+    batch = recsys_batch(cfg, 3, seed=1, step=0)
+    plain = R.dlrm_score(model, cfg, batch)
+    before = (indices_from_mask.launches, gather_xor.launches)
+    _same(R.dlrm_score(model, cfg, batch, lookup_fn=lookup), plain)
+    assert (indices_from_mask.launches - before[0],
+            gather_xor.launches - before[1]) == (12, 12)
+    before = (indices_from_mask.launches, gather_xor.launches,
+              xor_fold.launches)
+    _same(R.dlrm_score(model, cfg, batch, lookup_fn=lookup), plain)
+    assert (indices_from_mask.launches, gather_xor.launches,
+            xor_fold.launches) == before
+    assert pipe.metrics["cache_hits"] == 3 * cfg.n_sparse
+
+
+def test_reduced_gcn_on_the_card_matches_the_cpu(cuda_device):
+    """Full-batch (unsharded and on a (2, 4) mesh of the card), sampled and
+    batched GCN on the card against the CPU with the same weights."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import NeighborSampler, gnn_full_graph, molecule_batch
+    from repro_torch.dist import DEFAULT_RULES, make_mesh, mesh_rules
+    from repro_torch.models import gnn as G
+
+    cfg = get_arch("gcn-cora").CONFIG
+    g = gnn_full_graph(2000, 9000, 24, cfg.n_classes, seed=0, pad_to=8)
+    model, host = _card_and_cpu(
+        G.gcn_init(torch.Generator(device="cuda").manual_seed(0), cfg, 24))
+    args = [g[k] for k in ("feats", "src", "dst", "edge_w")]
+    got = G.gcn_apply(model, cfg, *args)
+    want = G.gcn_apply(host, cfg, *args)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    with mesh_rules(make_mesh((2, 4), ("data", "model"), [cuda_device]),
+                    DEFAULT_RULES):
+        sharded = G.gcn_apply(model, cfg, *args, g["mean_deg"])
+    torch.testing.assert_close(sharded.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        G.node_xent(got, g["labels"], g["label_mask"]).cpu(),
+        G.node_xent(want, g["labels"], g["label_mask"]), rtol=1e-4, atol=1e-4)
+
+    sampler = NeighborSampler.random_graph(3000, 20, 24, cfg.n_classes)
+    sub = sampler.sample(np.arange(64))
+    args = [sub[k] for k in ("feats", "src", "dst", "edge_w")]
+    torch.testing.assert_close(G.gcn_apply(model, cfg, *args).cpu(),
+                               G.gcn_apply(host, cfg, *args),
+                               rtol=1e-4, atol=1e-4)
+    mol = molecule_batch(16, 30, 64, 24, cfg.n_classes, seed=0, step=0)
+    args = [mol[k] for k in ("feats", "src", "dst", "edge_w")]
+    torch.testing.assert_close(G.batched_graph_apply(model, cfg, *args).cpu(),
+                               G.batched_graph_apply(host, cfg, *args),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_a_sparse_plan_past_the_cards_draws_is_refused(cuda_device):
+    """torch.multinomial writes out of bounds past 2^30 - 1 draws in one
+    call on the card; a plan that would draw more raises before drawing,
+    and the context stays usable."""
+    from repro_torch.core import sparse
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with pytest.raises(ValueError, match="split the lookups"):
+        sparse.precompute_query_randomness(gen, 1 << 20, 4, 0.25, 1 << 10)
+    pre = sparse.precompute_query_randomness(gen, 1 << 20, 4, 0.25, 4)
+    torch.cuda.synchronize()
+    assert pre.ranks.shape == (4, 1 << 20, 4)
