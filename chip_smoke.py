@@ -40,7 +40,12 @@ candidates, and its lookups fetched by Sparse-PIR (DLRM through the
 serving pipeline and its cache), bit-equal to the plain scores;
 BERT4Rec's masked-item loss; and the GCN at ogb_products' shape
 (2.45·10^6 nodes, 61.9·10^6 edges; unsharded and on the (2, 4) mesh) and
-at its Cora, sampled Reddit-sized and molecule shapes. Builds the CUDA
+at its Cora, sampled Reddit-sized and molecule shapes (FM's 39 private
+ids in one Sparse-PIR plan of 1.52·10^9 draws); then training: SmolLM-135M
+at full width for 20 steps of 8 x 2048 tokens (the flash kernel forward,
+twice a layer with remat, the plain attention's gradient), one step of
+each model on the card against the CPU, BERT4Rec and the GCN trained, and
+the training launcher's resume and int8 error feedback. Builds the CUDA
 kernels from the
 nine sources in this tree (flash attention has two: bf16 at head dims 64
 and 128 on wgmma, everything else on the TF32 tensor cores through
@@ -3173,35 +3178,22 @@ def _rows(batch, lo, hi):
     return {k: v[lo:hi] for k, v in batch.items()}
 
 
-def lookup_chunk(k: int, n: int) -> int:
-    """Ids a staged retrieve takes at once so that its Sparse-PIR plan over
-    ``n`` rows stays within the draws the card takes in one call
-    (``sparse.MAX_CARD_DRAWS``; FM's 39 x 39·10^6 = 1.52·10^9 do not):
-    ``k`` ids in equal chunks."""
-    from repro_torch.core.sparse import MAX_CARD_DRAWS
-
-    parts = -(-k * n // MAX_CARD_DRAWS)
-    return -(-k // max(1, parts))
-
-
 def private_lookups(pes, gen, counted, log):
     """A ``lookup_fn`` that fetches every id through the
-    ``PrivateEmbedding`` of its table (``pes``: data_ptr -> embedding), in
-    chunks of ``lookup_chunk`` ids, each its own staged retrieve (the same
-    answer bits and ε), logging each call's chunks and launches of the
-    wrappers in ``counted``."""
+    ``PrivateEmbedding`` of its table (``pes``: data_ptr -> embedding), all
+    of a call's ids in one staged retrieve (FM's 39 ids over 39·10^6 rows:
+    a plan of 1.52·10^9 draws, past what one ``torch.multinomial`` call
+    takes on the card, drawn in chunks by ``sparse._categorical``),
+    logging each call's launches of the wrappers in ``counted``."""
 
     def lookup(table, ids):
         before = {k: f_.launches for k, f_ in counted.items()}
         forms = dict(counted["xor_fold"].kernel_launches)
         pe = pes[table.data_ptr()]
-        flat = ids.reshape(-1)
-        chunk = lookup_chunk(flat.numel(), pe.vocab)
-        rows = torch.cat([pe.lookup(gen, part) for part in flat.split(chunk)])
-        rows = rows.reshape(*ids.shape, pe.dim)
+        rows = pe.lookup(gen, ids.reshape(-1)).reshape(*ids.shape, pe.dim)
         torch.cuda.synchronize()
-        log.append({"ids": list(ids.shape), "chunk": chunk,
-                    "chunks": -(-flat.numel() // chunk),
+        log.append({"ids": list(ids.shape),
+                    "plan_draws": ids.numel() * pe.vocab,
                     **{k: f_.launches - before[k]
                        for k, f_ in counted.items()},
                     **{f"xor_fold_{k}": c - forms[k] for k, c in
@@ -3429,8 +3421,7 @@ def serve_recsys(arch_id, dev, card, read_counts, reset_counts):
         priv["pass_s"] = time.perf_counter() - t
         counts = read_counts()
         calls = 2                  # FM: embed, linear; DIEN: hist, target
-        if len(log) != calls or any(c["xor_fold"] != d * c["chunks"]
-                                    for c in log):
+        if len(log) != calls or any(c["xor_fold"] != d for c in log):
             raise AssertionError(f"{label}: lookup calls {log}")
         pe = next(iter(pes.values()))
         priv.update({
@@ -3682,6 +3673,473 @@ def serve_gcn_small(dev, card, read_counts, reset_counts):
           [mol[k] for k in ("feats", "src", "dst", "edge_w")],
           lambda lg: G.graph_xent(lg, mol["labels"]), {})
     return by_path
+
+
+# ------------------------------------------------------------ training
+# card vs CPU, one AdamW step in f32: the loss (relative), each gradient
+# leaf against its largest value, the updated parameters where the CPU's
+# gradient is above 1e-4 of its leaf's largest (elsewhere AdamW's first
+# step is ≈ lr·sign(g) and each side is held to lr (1 + wd·|p|)); the
+# limits of test_torch_cuda.py's one-step test
+TRAIN_TOL = {"loss_rel": 1e-5, "grads_rel": 1e-4, "params_abs": 1e-5}
+
+
+def grads_of(loss_fn, params, batch):
+    """(loss, gradients in leaf order) of ``loss_fn`` at ``params``."""
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    loss, _, grads = value_and_grad(loss_fn, params, batch)
+    return loss, tree_leaves(grads)
+
+
+def step_card_vs_cpu(label, loss_fn, tree, host, batch, lr=1e-3):
+    """One AdamW step of ``loss_fn`` from the same weights on the card
+    (``tree``) and on the CPU (``host``): the largest errors of the loss,
+    the gradients and the updated parameters, held to ``TRAIN_TOL``."""
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    loss, grads = grads_of(loss_fn, tree, batch)
+    want_loss, want_grads = grads_of(loss_fn, host, batch)
+    grad_abs, grad_rel = 0.0, 0.0
+    for g, w in zip(grads, want_grads):
+        g = g.float().cpu()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: a gradient is not finite")
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        grad_abs = max(grad_abs, err)
+        grad_rel = max(grad_rel, err / (float(w.abs().max()) or 1.0))
+    init_fn, step_fn = make_train_step(loss_fn, AdamW(lr=lr))
+    state, metrics = step_fn(init_fn(tree), batch)
+    want_state, _ = step_fn(init_fn(host), batch)
+    param_abs, small_ok = 0.0, True
+    for got, ref, p0, g in zip(tree_leaves(state.params),
+                               tree_leaves(want_state.params),
+                               tree_leaves(host), want_grads):
+        got, big = got.float().cpu(), g.abs() > 1e-4 * float(g.abs().max())
+        if bool(big.any()):
+            param_abs = max(param_abs, float((got[big] - ref[big]).abs().max()))
+        bound = lr * (1 + 0.01 * p0[~big].abs()) * (1 + 1e-5) + 1e-7
+        small_ok &= bool(((got[~big] - p0[~big]).abs() <= bound).all())
+    loss_err = abs(float(loss) - float(want_loss))
+    out = {"loss_card": float(loss), "loss_cpu": float(want_loss),
+           "loss_abs_err": loss_err, "grads_max_abs_err": grad_abs,
+           "grads_max_err_over_leaf_max": grad_rel,
+           "params_max_abs_err": param_abs,
+           "small_gradient_moves_within_lr": small_ok,
+           "step_loss": float(metrics["loss"]), "tolerance": TRAIN_TOL}
+    if (loss_err > TRAIN_TOL["loss_rel"] * max(1.0, abs(float(want_loss)))
+            or grad_rel > TRAIN_TOL["grads_rel"]
+            or param_abs > TRAIN_TOL["params_abs"] or not small_ok):
+        raise AssertionError(f"{label}: card vs CPU {out}")
+    return out
+
+
+def _range_kernels(ev):
+    """(name, µs) of every kernel launched under the CPU event ``ev``."""
+    out = [(k.name, k.duration) for k in ev.kernels]
+    for child in ev.cpu_children:
+        out += _range_kernels(child)
+    return out
+
+
+# the attention backward's own range (``layers._FlashAttention.backward``)
+# and the one put round the optimizer's update here
+RANGES = ("attention_backward", "train:optimizer")
+
+
+def train_split(opt, loss_fn, state, batches):
+    """Device time of ``len(batches)`` training steps by what it does, from
+    a torch.profiler trace of the card: the attention backward (the plain
+    path recomputed and differentiated inside ``_FlashAttention.
+    backward``, under its own profiler range) and the optimizer's update,
+    under a range put around it here; the flash forward (the forward and
+    the remat's recompute), the GEMMs and the rest by kernel name.
+    Measurement only: runs the steps once more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import make_train_step
+
+    class Ranged:
+        def init(self, params):
+            return opt.init(params)
+
+        def update(self, *args):
+            with record_function(RANGES[1]):
+                return opt.update(*args)
+
+    _, step = make_train_step(loss_fn, Ranged())
+
+    def group(name):
+        return next((g for g, keys in LM_GROUPS.items()
+                     if any(k in name for k in keys)), "other")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            state, _ = step(state, {"tokens": b})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_name = {g: 0.0 for g in list(LM_GROUPS) + ["other"]}
+    events = 0
+    ranged = {"attention_backward": [], "optimizer": []}
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in RANGES:
+            # (a range also shows on the device's timeline under its own
+            # name, spanning its kernels: not a kernel)
+            events += 1
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            by_name[group(e.name)] += ms
+            kernels[e.name] = kernels.get(e.name, 0.0) + ms
+        elif e.device_type == DeviceType.CPU and e.name in RANGES:
+            ranged[e.name.split(":")[-1]] += _range_kernels(e)
+    split = dict(by_name)
+    for key, under in ranged.items():
+        split[key] = sum(us for _, us in under) / 1e3
+        for name, us in under:
+            split[group(name)] -= us / 1e3
+    busy = sum(by_name.values())
+    return {"steps": len(batches), "ms": split, "device_ms": busy,
+            "wall_ms": wall * 1e3,
+            "busy_share": busy / (wall * 1e3) if wall > 0 else None,
+            "device_events": events,
+            "attention_backward_share": split["attention_backward"] / busy
+            if busy else None,
+            # the kernels that take the most device time, wherever they run
+            "top_kernels_ms": sorted(kernels.items(), key=lambda kv: -kv[1])[
+                :12]}
+
+
+def train_smollm(dev, card, flash, read_counts, reset_counts):
+    """SmolLM-135M trained at full width (``configs/smollm_135m.py``
+    ``CONFIG``: 30 layers, d 576, 9/3 heads, vocab 49 152, bf16, remat,
+    loss chunks of 512; random weights from seed 0) with
+    ``default_optimizer`` (AdamW 3e-4): 20 steps of 8 x 2048 tokens from
+    ``lm_batch(seed=0, step=i)``. Each step's loss and host-clock time;
+    the flash kernel twice a layer a step (the forward and the remat's
+    recompute). Then a torch.profiler split of two more steps. Returns
+    the 20 steps' launch counts."""
+    import statistics
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import default_optimizer, lm_loss_fn
+
+    t_phase = time.perf_counter()
+    start = lm_phase_start()
+    cfg = get_arch("smollm-135m").CONFIG
+    batch, seq, steps = 8, 2048, 20
+    opt = default_optimizer(cfg)
+    loss_fn = lm_loss_fn(cfg)
+    init_fn, step_fn = make_train_step(loss_fn, opt)
+    state = init_fn(T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                              device=dev))
+    params = sum(p.numel() for p in tree_leaves(state.params))
+    tokens = [lm_batch(cfg, batch, seq, seed=0, step=i)["tokens"]
+              for i in range(steps + 2)]
+    reset_counts()
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, {"tokens": tokens[i]})
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.n_layers
+    if (flash.launches != per_step * steps
+            or counts["flash_wgmma_kernel"] != per_step * steps):
+        raise AssertionError(f"train_smollm: flash launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train_smollm: losses {losses}")
+    median = statistics.median(times[2:])
+    launches_per_step = flash.launches / steps
+    split = train_split(opt, loss_fn, state, tokens[steps:])
+    emit({
+        "phase": "train_smollm", "card": card, "config": cfg.name,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "vocab": cfg.vocab,
+        "dtype": cfg.dtype, "remat": cfg.remat,
+        "remat_policy": cfg.remat_policy, "loss_chunk": cfg.loss_chunk,
+        "params": params, "optimizer": type(opt).__name__, "lr": opt.lr,
+        "batch": batch, "seq": seq, "steps": steps,
+        "loss_step_1": losses[0], f"loss_step_{steps}": losses[-1],
+        "losses": losses, "step_s": times,
+        "median_step_s_steps_3_to_20": median,
+        "tokens_per_s": batch * seq / median,
+        "flash_launches_per_step": launches_per_step,
+        "launches": {k: c for k, c in counts.items() if c},
+        "memory_at_start": start, "max_memory_allocated": peak,
+        "split": split, "seconds": time.perf_counter() - t_phase,
+    })
+    del state
+    lm_phase_end()
+    return counts
+
+
+def _lm_pair(arch, dev, **over):
+    """``arch``'s reduced config (with ``over``), weights from seed 0 on
+    the card and the same weights on the CPU carried by ``convert``."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+    model = T.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    host = convert.lm_params_from_numpy(convert.lm_params_to_numpy(model),
+                                        cfg, device="cpu")
+    return cfg, model.tree(), host.tree()
+
+
+def train_card_vs_cpu(dev, card, flash, read_counts, reset_counts):
+    """One training step on the card against the same step on the CPU,
+    from weights carried across by ``convert``: reduced SmolLM in f32
+    with remat and loss chunks of 8, reduced Moonlight (MoE, its aux
+    loss in the loss), reduced gemma-2 (softcaps, window) and BERT4Rec at
+    its full config (8 users). Returns the card's launch counts."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.data import bert4rec_batch, lm_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.train.train_step import lm_loss_fn, recsys_loss_fn
+
+    t_phase = time.perf_counter()
+    lm_phase_start()
+    reset_counts()
+    models = {}
+    for label, arch, over in (
+            ("smollm_reduced_remat", "smollm-135m",
+             dict(remat=True, loss_chunk=8)),
+            ("moonlight_reduced", "moonshot-v1-16b-a3b", {}),
+            ("gemma2_reduced", "gemma2-2b", {})):
+        cfg, tree, host = _lm_pair(arch, dev, **over)
+        tokens = lm_batch(cfg, 4, 64, seed=0, step=0)["tokens"]
+        before = flash.launches
+        models[label] = {
+            "config": cfg.name, "remat": cfg.remat,
+            "loss_chunk": cfg.loss_chunk, "moe": cfg.moe,
+            **step_card_vs_cpu(label, lm_loss_fn(cfg), tree, host,
+                               {"tokens": tokens}),
+            "flash_launches": flash.launches - before}
+    cfg = get_arch("bert4rec").CONFIG
+    model = R.bert4rec_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                            device=dev)
+    host = convert.bert4rec_params_from_numpy(
+        convert.bert4rec_params_to_numpy(model), cfg, device="cpu")
+    before = flash.launches
+    models["bert4rec"] = {
+        "config": cfg.name, "users": 8,
+        **step_card_vs_cpu("bert4rec", recsys_loss_fn(cfg), model.tree(),
+                           host.tree(), bert4rec_batch(cfg, 8, seed=0,
+                                                       step=0)),
+        "flash_launches": flash.launches - before}
+    counts = read_counts()
+    if flash.launches <= 0:
+        raise AssertionError("train_card_vs_cpu: no flash launch")
+    emit({"phase": "train_card_vs_cpu", "card": card, "models": models,
+          "launches": {k: c for k, c in counts.items() if c},
+          "seconds": time.perf_counter() - t_phase})
+    lm_phase_end()
+    return counts
+
+
+def train_bert4rec(dev, card, flash, read_counts, reset_counts):
+    """BERT4Rec at its full config (random weights from seed 0) trained
+    for 6 AdamW steps of ``bert4rec_batch(32, seed=0, step=i)``: the loss
+    and host-clock time of each step, the flash kernel once a block a
+    forward (no remat). Returns the launch counts."""
+    import statistics
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import bert4rec_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import default_optimizer, recsys_loss_fn
+
+    t_phase = time.perf_counter()
+    lm_phase_start()
+    cfg = get_arch("bert4rec").CONFIG
+    users, steps = 32, 6
+    init_fn, step_fn = make_train_step(recsys_loss_fn(cfg),
+                                       default_optimizer(cfg))
+    state = init_fn(R.bert4rec_init(torch.Generator(device=dev).manual_seed(0),
+                                    cfg, device=dev))
+    batches = [bert4rec_batch(cfg, users, seed=0, step=i)
+               for i in range(steps)]
+    reset_counts()
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = read_counts()
+    if (flash.launches != cfg.n_blocks * steps
+            or counts["flash_fwd_kernel"] != cfg.n_blocks * steps):
+        raise AssertionError(f"train_bert4rec: launches {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_bert4rec: losses {losses}")
+    emit({"phase": "train_bert4rec", "card": card, "config": cfg.name,
+          "users": users, "steps": steps, "losses": losses, "step_s": times,
+          "median_step_s": statistics.median(times[1:]),
+          "flash_launches_per_step": flash.launches / steps,
+          "launches": {k: c for k, c in counts.items() if c},
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    del state
+    lm_phase_end()
+    return counts
+
+
+def train_gcn(dev, card, read_counts, reset_counts):
+    """gcn-cora trained full-graph at Cora's shape (``full_graph_sm``) and
+    on the molecule batch (``molecule``: 128 graphs), 10 AdamW steps each:
+    each step's loss and host-clock time. No kernel of the port runs
+    here. Returns each run's launch counts."""
+    import statistics
+
+    from repro_torch.data import gnn_full_graph, molecule_batch
+    from repro_torch.models import gnn as G
+    from repro_torch.train.train_step import (
+        default_optimizer, gnn_full_loss_fn, gnn_molecule_loss_fn,
+    )
+    from repro_torch.train import make_train_step
+
+    t_phase = time.perf_counter()
+    lm_phase_start()
+    runs, by_path = {}, {}
+    sp = _gcn_shape("full_graph_sm")
+    g = gnn_full_graph(sp["n_nodes"], sp["n_edges"], sp["d_feat"],
+                       sp["n_classes"], seed=0)
+    mp = _gcn_shape("molecule")
+    mol = molecule_batch(mp["batch"], mp["n_nodes"], mp["n_edges"],
+                         mp["d_feat"], mp["n_classes"], seed=0, step=0)
+    for label, shape, batch, loss_fn in (
+            ("cora", sp, g, gnn_full_loss_fn),
+            ("molecule", mp, mol, gnn_molecule_loss_fn)):
+        cfg = _gcn_cfg(shape)
+        batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                 for k, v in batch.items() if isinstance(v, np.ndarray)}
+        init_fn, step_fn = make_train_step(loss_fn(cfg),
+                                           default_optimizer(cfg))
+        state = init_fn(G.gcn_init(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, shape["d_feat"], device=dev))
+        reset_counts()
+        losses, times = [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        by_path[f"train_gcn_{label}"] = read_counts()
+        if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+            raise AssertionError(f"train_gcn {label}: losses {losses}")
+        runs[label] = {"shape": shape, "losses": losses, "step_s": times,
+                       "median_step_s": statistics.median(times[1:])}
+    emit({"phase": "train_gcn", "card": card, "runs": runs,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    lm_phase_end()
+    return by_path
+
+
+RESUME_TOL = 1e-5
+
+
+def train_resume(dev, card, flash, read_counts, reset_counts):
+    """``launch/train.py`` on the card with reduced SmolLM: 4 steps
+    unbroken against 2 steps, an async save, a restore into a fresh state
+    and 2 more steps (``--resume``); the two final checkpoints' largest
+    difference is held to ``RESUME_TOL`` (on the card the embedding's and
+    the gathers' backward add by atomics; the CPU test holds them bit for
+    bit). Then 25 steps with and without ``--compress-grads``' int8 error
+    feedback (AdamW 1e-3, 8 x 32 tokens, as the reference's
+    tests/test_substrate.py asks): the compressed loss tracks the plain
+    one. Returns the launch counts."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import (
+        AdamW, CheckpointManager, ErrorFeedbackCompressor, make_train_step,
+    )
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import lm_loss_fn
+
+    t_phase = time.perf_counter()
+    lm_phase_start()
+    cfg = get_arch("smollm-135m").reduced()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_resume_", dir=ROOT / "build")
+    reset_counts()
+    try:
+        common = ["--arch", "smollm-135m", "--reduced", "--batch", "8",
+                  "--seq", "32", "--log-every", "1"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launch_train.main(common + ["--steps", "4", "--ckpt-dir",
+                                        f"{root}/a"])
+            launch_train.main(common + ["--steps", "2", "--ckpt-every", "2",
+                                        "--ckpt-dir", f"{root}/b"])
+            launch_train.main(common + ["--steps", "4", "--resume",
+                                        "--ckpt-dir", f"{root}/b"])
+        log = out.getvalue()
+        if "resumed from step 2" not in log:
+            raise AssertionError(f"train_resume: {log}")
+        init_fn, _ = make_train_step(lm_loss_fn(cfg), AdamW())
+        template = init_fn(T.init_lm(torch.Generator(device=dev).manual_seed(9),
+                                     cfg, device=dev))
+        a, man_a = CheckpointManager(f"{root}/a").restore(template)
+        b, man_b = CheckpointManager(f"{root}/b").restore(template)
+        diff = max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        if man_a["step"] != 4 or man_b["step"] != 4 or diff > RESUME_TOL:
+            raise AssertionError(f"train_resume: resumed run differs by {diff}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = {}
+    for name, comp in (("plain", None),
+                       ("compressed", ErrorFeedbackCompressor(True))):
+        init_fn, step_fn = make_train_step(lm_loss_fn(cfg), AdamW(lr=1e-3),
+                                           comp)
+        state = init_fn(T.init_lm(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, device=dev))
+        losses[name] = []
+        for i in range(25):
+            state, m = step_fn(state, {"tokens": lm_batch(cfg, 8, 32, 0, i)[
+                "tokens"]})
+            losses[name].append(float(m["loss"]))
+    counts = read_counts()
+    gap = abs(losses["compressed"][-1] - losses["plain"][-1])
+    if gap >= 0.25 or losses["compressed"][-1] >= losses["compressed"][0] - 0.3:
+        raise AssertionError(f"train_resume: compressed training {losses}")
+    emit({"phase": "train_resume", "card": card, "config": cfg.name,
+          "resumed_vs_unbroken_max_abs_diff": diff, "tolerance": RESUME_TOL,
+          "log": log.splitlines(), "losses": losses,
+          "compressed_vs_plain_final_gap": gap,
+          "launches": {k: c for k, c in counts.items() if c},
+          "seconds": time.perf_counter() - t_phase})
+    lm_phase_end()
+    return counts
 
 
 def main() -> int:
@@ -4469,6 +4927,21 @@ def main() -> int:
     by_path["serve_gcn_products"] = serve_gcn_products(
         dev, smi, read_counts, reset_counts)
     by_path.update(serve_gcn_small(dev, smi, read_counts, reset_counts))
+
+    # ------------------------------------------------------ 14 training
+    # SmolLM-135M at full width (the flash kernel forward, twice a layer
+    # with remat; the plain path's gradient), each model's step on the
+    # card against the CPU, BERT4Rec and the GCN trained, and the
+    # launcher's resume and int8 error feedback
+    by_path["train_smollm"] = train_smollm(
+        dev, smi, flash_attention_fwd, read_counts, reset_counts)
+    by_path["train_card_vs_cpu"] = train_card_vs_cpu(
+        dev, smi, flash_attention_fwd, read_counts, reset_counts)
+    by_path["train_bert4rec"] = train_bert4rec(
+        dev, smi, flash_attention_fwd, read_counts, reset_counts)
+    by_path.update(train_gcn(dev, smi, read_counts, reset_counts))
+    by_path["train_resume"] = train_resume(
+        dev, smi, flash_attention_fwd, read_counts, reset_counts)
 
     # each kernel's count comes from its path, else the first path that
     # runs it; every path's own counts ride along. An operand set on no

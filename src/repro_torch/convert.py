@@ -43,6 +43,8 @@ __all__ = [
     "recsys_params_to_numpy",
     "gcn_params_from_numpy",
     "gcn_params_to_numpy",
+    "train_state_from_numpy",
+    "train_state_to_numpy",
 ]
 
 
@@ -166,9 +168,14 @@ def multi_queries_to_numpy(mq: MultiQueries) -> dict:
 
 
 # ------------------------------------------------------------ model weights
-def _tensor_from_numpy(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+def _tensor_from_numpy(a, device: torch.device,
+                       dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """An array as a tensor on ``device`` in ``dtype`` (``None``: its own).
+    A bf16 array is read bit for bit: one of numpy's ``bfloat16`` type, or
+    the 2-byte void numpy reads back from a file of one."""
     arr = np.asarray(a)
-    if arr.dtype.name == "bfloat16":
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                        and arr.dtype.itemsize == 2):
         t = torch.from_numpy(_owned(arr.view(np.uint16), np.uint16).view(np.int16))
         t = t.view(torch.bfloat16)
     else:
@@ -301,3 +308,42 @@ def gcn_params_to_numpy(params) -> dict:
     """A :class:`~repro_torch.models.gnn.GCN` (or its tree) -> the
     reference's pytree layout as numpy."""
     return _tree_to_numpy(layers.as_tree(params))
+
+
+# ------------------------------------------------------------ training state
+def train_state_from_numpy(state, cfg=None, device: DeviceLike = None):
+    """A training state as numpy (the reference's ``TrainState`` with
+    numpy leaves, or a dict of its four fields: ``params``, ``opt_state``,
+    ``comp_state``, ``step``) -> the port's
+    :class:`~repro_torch.train.TrainState` on ``device`` (``None``: the
+    card).
+
+    The parameters take an LM config's dtype (the MoE ``router`` float32)
+    when ``cfg`` is an LM config, else float32; the optimizer's and the
+    compressor's states (AdamW's ``m``, ``v``, ``step``; Adafactor's
+    ``row``/``col``/``v``; the compressor's ``err``) and the step keep
+    their own dtypes (float32 and int32 in both packages)."""
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.train.train_step import TrainState
+
+    if hasattr(state, "_asdict"):
+        state = state._asdict()
+    dev = resolve_device(device)
+    if isinstance(cfg, LMConfig):
+        params = _tree_from_numpy(state["params"], dev,
+                                  transformer._dtype(cfg),
+                                  f32_leaves=("router",))
+    else:
+        params = _tree_from_numpy(state["params"], dev, torch.float32)
+    return TrainState(
+        params=params,
+        opt_state=_tree_from_numpy(state["opt_state"], dev, None),
+        comp_state=_tree_from_numpy(state["comp_state"], dev, None),
+        step=_tree_from_numpy(state["step"], dev, None),
+    )
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` -> a dict of its four fields as numpy
+    (bf16 leaves as float32)."""
+    return {k: _tree_to_numpy(v) for k, v in state._asdict().items()}

@@ -46,8 +46,9 @@ _RANK_CHUNK_COLS = 1 << 17
 
 # the most draws one torch.multinomial call makes right on a CUDA
 # generator: on an H100 with torch 2.11, 2^30 - 1 draws came out right and
-# 2^30 + 1 wrote out of bounds, which spoils the process's CUDA context. A
-# plan draws B·n column weights at once, so B·n must stay within it
+# 2^30 + 1 wrote out of bounds, which spoils the process's CUDA context
+# (scripts/multinomial_probe.py). A plan draws B·n column weights, so
+# :func:`_categorical` draws a larger count in calls of at most this many
 MAX_CARD_DRAWS = (1 << 30) - 1
 
 
@@ -100,17 +101,26 @@ class SparsePre:
 def _categorical(
     gen: torch.Generator, logits: np.ndarray, count: int
 ) -> torch.Tensor:
-    """``count`` draws from softmax(logits). A weight at -inf gets
-    probability exactly 0 — that is what enforces the parity."""
-    if gen.device.type == "cuda" and count > MAX_CARD_DRAWS:
-        raise ValueError(
-            f"a Sparse-PIR plan of {count} lookup-rows (batch x n) is past "
-            f"the {MAX_CARD_DRAWS} draws torch.multinomial takes in one call "
-            "on the card: split the lookups into smaller batches")
+    """``count`` uint8 draws from softmax(logits) (at most 256 classes). A
+    weight at -inf gets probability exactly 0 — that is what enforces the
+    parity.
+
+    A count within ``MAX_CARD_DRAWS`` is one ``torch.multinomial`` call; a
+    larger one is drawn in calls of at most that many, one after another
+    from ``gen``, each written into one preallocated uint8 tensor (the
+    int64 of a single call would be 8 bytes a draw: 12 GB at 1.5·10^9)."""
     logits = logits - logits[np.isfinite(logits)].max()
     probs = torch.tensor(np.exp(logits), dtype=torch.float32,
                          device=gen.device)
-    return torch.multinomial(probs, count, replacement=True, generator=gen)
+    if count <= MAX_CARD_DRAWS:
+        return torch.multinomial(probs, count, replacement=True,
+                                 generator=gen).to(torch.uint8)
+    out = torch.empty((count,), dtype=torch.uint8, device=gen.device)
+    for lo in range(0, count, MAX_CARD_DRAWS):
+        hi = min(count, lo + MAX_CARD_DRAWS)
+        out[lo:hi] = torch.multinomial(probs, hi - lo, replacement=True,
+                                       generator=gen)
+    return out
 
 
 def precompute_query_randomness(
@@ -123,8 +133,8 @@ def precompute_query_randomness(
         raise ValueError(f"uint8 rank storage needs d <= 255, got {d}")
     logits = parity_weight_logits(d, theta)
     dev = gen.device
-    w_even = _categorical(gen, logits[0], b * n).to(torch.uint8).reshape(b, n)
-    w_q = _categorical(gen, logits[1], b).to(torch.uint8)
+    w_even = _categorical(gen, logits[0], b * n).reshape(b, n)
+    w_q = _categorical(gen, logits[1], b)
     # uniform choice of `w` positions out of d: rank the d slots by iid
     # uniforms and keep ranks < w. The rank is the inverse permutation of
     # the sort order, written with one scatter; drawn in chunks of columns.

@@ -9,8 +9,10 @@ every layer is an ``*_init(gen, ..., device) -> params`` plus an
 ``torch.Generator`` (its own numbers, not the reference's).
 
 Attention on a CUDA tensor goes through the hand-written flash kernel
-(:func:`repro_torch.kernels.flash_attention.flash_attention_fwd`); on a
-CPU tensor it is the reference's plain ``_attn_core``.
+(:func:`repro_torch.kernels.flash_attention.flash_attention_fwd`), its
+gradient through the reference's plain ``_attn_core``
+(:class:`_FlashAttention`); on a CPU tensor it is the plain path both
+ways.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ Tree = Union[Dict[str, "Tree"], list, torch.Tensor]
 # ----------------------------------------------------------- parameters
 class ParamTree(nn.Module):
     """An ``nn.Module`` holding a nested dict (or list) of tensors as
-    parameters (no gradient: the port serves), under the same names.
+    parameters (no gradient: training differentiates detached copies of
+    the tensors, ``repro_torch.train.make_train_step``), under the same
+    names.
     :meth:`tree` hands back the nested structure of the same tensors."""
 
     def __init__(self, tree: Tree):
@@ -289,6 +293,74 @@ def _flash(q, k, v, causal, window, softcap, q_offset) -> torch.Tensor:
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
+def _query_blocks(sq: int):
+    """(lo, hi) of each query block of the plain path: queries longer than
+    ``ATTN_CHUNK_Q`` (and a multiple of it) in blocks of it, else one."""
+    chunk = ATTN_CHUNK_Q if sq > ATTN_CHUNK_Q and sq % ATTN_CHUNK_Q == 0 else sq
+    return [(lo, lo + chunk) for lo in range(0, sq, chunk)]
+
+
+def _plain_attention(q, k, v, causal, window, attn_softcap, q_offset):
+    """The reference's plain path over pre-broadcast K/V, a block of
+    queries at a time (:func:`_query_blocks`), so the [Sq, Skv] scores of
+    a long prefill never materialise whole."""
+    dh = q.shape[3]
+    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = torch.arange(q.shape[1], device=q.device) + q_offset
+    outs = [_attn_core(q[:, lo:hi], k, v, qpos[lo:hi], kpos, causal, window,
+                       attn_softcap, dh)
+            for lo, hi in _query_blocks(q.shape[1])]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward with the reference's gradient.
+
+    Forward: :func:`_flash`, the kernel launch, on K/V already broadcast
+    over the query groups (autograd sums their gradient over the groups,
+    as it does through :func:`_repeat_kv` on the CPU). q, k and v are
+    saved for the backward and nothing else; autograd drops them when it
+    records no node (grad mode off, or no input requires grad).
+
+    Backward: the plain ``_attn_core`` recomputed under
+    ``torch.enable_grad()`` on detached inputs, a block of queries at a
+    time (:func:`_query_blocks`, the reference's remat'd
+    ``lax.map``), differentiated by ``torch.autograd.grad``. That is the
+    function ``jax.grad`` differentiates in the reference, which has no
+    backward kernel either (no ``custom_vjp``): no kernel exists here for
+    this code to stand in for, and the forward runs only on the kernel.
+    It runs under the profiler range ``attention_backward``, so that a
+    trace can tell its time apart."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, softcap, q_offset)
+        return _flash(q, k, v, causal, window, softcap, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        causal, window, softcap, q_offset = ctx.args
+        dh = q.shape[3]
+        kpos = torch.arange(k.shape[1], device=q.device)
+        dq, dk, dv = [], None, None
+        with torch.profiler.record_function("attention_backward"):
+            kd, vd = k.detach().requires_grad_(), v.detach().requires_grad_()
+            for lo, hi in _query_blocks(q.shape[1]):
+                qc = q[:, lo:hi].detach().requires_grad_()
+                qpos = torch.arange(lo, hi, device=q.device) + q_offset
+                with torch.enable_grad():
+                    out = _attn_core(qc, kd, vd, qpos, kpos, causal, window,
+                                     softcap, dh)
+                    g = torch.autograd.grad(out, (qc, kd, vd),
+                                            grad_out[:, lo:hi])
+                dq.append(g[0])
+                dk = g[1] if dk is None else dk + g[1]
+                dv = g[2] if dv is None else dv + g[2]
+        return torch.cat(dq, dim=1), dk, dv, None, None, None, None
+
+
 def gqa_attention(
     q: torch.Tensor,              # [B, Sq, Hq, D]
     k: torch.Tensor,              # [B, Skv, Hkv, D]
@@ -307,31 +379,22 @@ def gqa_attention(
     On a CUDA tensor: K/V broadcast over the query groups, then the flash
     kernel, which takes the softcap and the offset (f32 scores, cap and
     softmax inside, the result in q's dtype); there is no fallback to the
-    plain path.
+    plain path. The launch goes through :class:`_FlashAttention`, whose
+    backward differentiates the reference's plain path (the reference
+    trains through it; there is no backward kernel). Under
+    ``torch.no_grad()`` (serving), or when no input requires grad,
+    autograd records no node and keeps nothing that the Function saved.
 
-    On a CPU tensor: the reference's plain path, with queries longer than
-    ``ATTN_CHUNK_Q`` (and a multiple of it) taken in chunks so the
-    [Sq, Skv] scores never materialise whole."""
-    b, sq, hq, dh = q.shape
-    hkv = k.shape[2]
+    On a CPU tensor: the reference's plain path, a block of queries at a
+    time (:func:`_query_blocks`)."""
+    hq, hkv = q.shape[2], k.shape[2]
     k = _repeat_kv(k, hq // hkv)
     v = _repeat_kv(v, hq // hkv)
     window = None if window is None else int(window)
     if q.device.type != "cpu":
-        return _flash(q, k, v, causal, window, float(attn_softcap),
-                      int(q_offset))
-
-    kpos = torch.arange(k.shape[1], device=q.device)
-    qpos = torch.arange(sq, device=q.device) + q_offset
-    if sq > ATTN_CHUNK_Q and sq % ATTN_CHUNK_Q == 0:
-        outs = [
-            _attn_core(q[:, lo : lo + ATTN_CHUNK_Q], k, v,
-                       qpos[lo : lo + ATTN_CHUNK_Q], kpos, causal, window,
-                       attn_softcap, dh)
-            for lo in range(0, sq, ATTN_CHUNK_Q)
-        ]
-        return torch.cat(outs, dim=1)
-    return _attn_core(q, k, v, qpos, kpos, causal, window, attn_softcap, dh)
+        return _FlashAttention.apply(q, k, v, causal, window,
+                                     float(attn_softcap), int(q_offset))
+    return _plain_attention(q, k, v, causal, window, attn_softcap, q_offset)
 
 
 def decode_attention(

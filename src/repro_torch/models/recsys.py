@@ -18,7 +18,11 @@ Uniform API per model M ∈ {fm, dlrm, dien, bert4rec}:
     retrieval_scores(user_vec, cand) -> [B, n_candidates]
 
 The weights carry no gradient and nothing here turns autograd off: with
-weights that require it, the scores and losses differentiate as they are.
+weights that require it, the scores and losses differentiate as they are
+(``repro_torch.train.recsys_loss_fn``). On the card BERT4Rec's attention
+runs forward on the flash kernel and takes its gradient from the
+reference's plain attention, recomputed in the backward
+(:class:`repro_torch.models.layers._FlashAttention`).
 """
 
 from __future__ import annotations

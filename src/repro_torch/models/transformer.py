@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM of the port: the serving half (prefill and
-decode), dense and MoE (:mod:`.moe`), GQA/RoPE/RMSNorm/SwiGLU, gemma-2's
+"""Decoder-only transformer LM of the port: the training loss and the
+serving half (prefill and decode), dense and MoE (:mod:`.moe`), GQA/RoPE/RMSNorm/SwiGLU, gemma-2's
 local/global alternation and logit softcaps, tied embeddings. One code
 path covers the five LM archs of the reference.
 
@@ -12,22 +12,33 @@ launches the flash kernel once (with gemma-2's window and softcap); decode
 attends over the cache with the plain masked softmax, as the reference's
 single-device branch does.
 
+Training (:func:`train_loss`) runs the same blocks with the gradient
+on: ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``; the
+"dots" policy keeps the matmul outputs), and the loss is taken a
+``loss_chunk`` of positions at a time, each chunk's logits recomputed in
+the backward. On the card the forward attention is the flash kernel and
+its gradient the plain path's (:class:`repro_torch.models.layers.
+_FlashAttention`); with remat the kernel runs twice a layer a step.
+
 API (the reference's; ``params`` is a :class:`TransformerLM` or its
 nested dict):
     init_lm(gen, cfg, device=None)              -> TransformerLM
+    train_loss(params, cfg, tokens)             -> (loss, {"nll", "aux"})
     prefill(params, cfg, tokens, max_len)       -> (last_logits, cache)
     decode_step(params, cfg, cache, tok, pos)   -> (logits, cache)
-
-Not ported yet (ROADMAP.md Queue A item 13): ``train_loss`` and
-training.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import LMConfig
@@ -36,7 +47,8 @@ from repro_torch.dist.sharding import mesh_axis_names
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
-__all__ = ["KVCache", "TransformerLM", "init_lm", "prefill", "decode_step"]
+__all__ = ["KVCache", "TransformerLM", "init_lm", "train_loss", "prefill",
+           "decode_step"]
 
 _BIG_WINDOW = 1 << 30
 
@@ -164,6 +176,126 @@ def _embed_tokens(embed: torch.Tensor, cfg: LMConfig, tokens: torch.Tensor):
     x = sharded_vocab_lookup(embed, tokens)
     # gemma-style scale, rounded to the activations' dtype first
     return x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# training backbone
+# --------------------------------------------------------------------------
+def _block_train(p, x, cfg: LMConfig, window: int):
+    """One block with the gradient on: (x, the MoE aux loss, 0 if dense)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    y = L.rmsnorm(p["ln1"], x)
+    h, _, _ = _attn_full(p, cfg, y, window, positions)
+    x = x + h
+    y2 = L.rmsnorm(p["ln2"], x)
+    if cfg.moe:
+        m, aux = moe_lib.moe_apply(
+            p["moe"], y2, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor,
+        )
+    else:
+        m = L.swiglu(p["mlp"], y2)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, aux
+
+
+# the matmuls the "dots" policy keeps (the reference's
+# dots_with_no_batch_dims_saveable): everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: LMConfig, fn, *args):
+    """``fn(*args)`` recomputed in the backward when ``cfg.remat``."""
+    if not cfg.remat:
+        return fn(*args)
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _unstack(stacked):
+    """The stacked [L, ...] tree -> L per-layer trees (one ``unbind`` a
+    leaf: its backward stacks the L gradients at once)."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked.unbind(0)
+    per_key = {k: _unstack(v) for k, v in stacked.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+
+
+def _backbone(params, cfg: LMConfig, tokens):
+    """tokens [B, S] -> (final-normed x [B, S, D], summed MoE aux)."""
+    tree = L.as_tree(params)
+    x = _embed_tokens(tree["embed"], cfg, tokens)
+    windows = _layer_windows(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(_unstack(tree["layers"])):
+        x, a = _remat(cfg, functools.partial(_block_train, cfg=cfg,
+                                             window=int(windows[i])),
+                      p, x)
+        aux = aux + a
+    return L.rmsnorm(tree["final_norm"], x), aux
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+def _xent_chunk(x, embed, targets, mask, final_softcap):
+    """x: [B, C, D]; returns (summed nll, count)."""
+    logits = torch.einsum("bcd,vd->bcv", x, embed.to(x.dtype))
+    logits = L.softcap(logits, final_softcap).float()
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (lse - tgt) * mask
+    return torch.sum(nll), torch.sum(mask)
+
+
+def train_loss(params, cfg: LMConfig, tokens):
+    """Next-token LM loss. tokens: [B, S] ints (numpy is moved to the
+    parameters' device). Returns (loss, {"nll": loss, "aux": aux}); a MoE
+    model's loss adds ``0.01 · aux / n_layers``."""
+    tree = L.as_tree(params)
+    embed = tree["embed"]
+    tokens = _tokens(tokens, embed.device)
+    x, aux = _backbone(tree, cfg, tokens)
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:], dtype=torch.float32),
+                      torch.zeros_like(tokens[:, :1], dtype=torch.float32)],
+                     dim=1)
+
+    b, s, d = x.shape
+    chunk = cfg.loss_chunk if cfg.loss_chunk > 0 else s
+    n_chunks = max(1, s // chunk)
+
+    def per_chunk(xc, tc, mc):
+        return _xent_chunk(xc, embed, tc, mc, cfg.final_softcap)
+
+    xcs = x.reshape(b, n_chunks, chunk, d)
+    tcs = targets.reshape(b, n_chunks, chunk)
+    mcs = mask.reshape(b, n_chunks, chunk)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        # recompute the chunk's logits in the backward: never stored
+        n_, c_ = checkpoint(per_chunk, xcs[:, c], tcs[:, c], mcs[:, c],
+                            use_reentrant=False)
+        nll, cnt = nll + n_, cnt + c_
+    loss = nll / torch.clamp(cnt, min=1.0)
+    if cfg.moe:
+        loss = loss + 0.01 * aux / cfg.n_layers
+    return loss, {"nll": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------

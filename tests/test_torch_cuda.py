@@ -1822,15 +1822,185 @@ def test_reduced_gcn_on_the_card_matches_the_cpu(cuda_device):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_a_sparse_plan_past_the_cards_draws_is_refused(cuda_device):
+def test_a_sparse_plan_past_the_cards_draws_is_drawn_right(cuda_device):
     """torch.multinomial writes out of bounds past 2^30 - 1 draws in one
-    call on the card; a plan that would draw more raises before drawing,
-    and the context stays usable."""
+    call on the card; a plan of more (1025 lookups over 2^20 records:
+    1.07·10^9 column weights) is drawn in chunks within the limit: its
+    parities and row-weight law hold and every record is recovered
+    exactly; the context stays usable."""
+    import math
+
     from repro_torch.core import sparse
 
+    n, b, d, theta = 1 << 20, 1025, 4, 0.25
+    assert n * b > sparse.MAX_CARD_DRAWS
     gen = torch.Generator(device="cuda").manual_seed(0)
-    with pytest.raises(ValueError, match="split the lookups"):
-        sparse.precompute_query_randomness(gen, 1 << 20, 4, 0.25, 1 << 10)
-    pre = sparse.precompute_query_randomness(gen, 1 << 20, 4, 0.25, 4)
+    pre = sparse.precompute_query_randomness(gen, n, d, theta, b)
     torch.cuda.synchronize()
-    assert pre.ranks.shape == (4, 1 << 20, 4)
+    assert pre.w_even.shape == (b, n) and pre.w_even.dtype == torch.uint8
+    assert int((pre.w_even % 2).sum()) == 0
+    assert int((pre.w_q % 2).min()) == 1
+    assert pre.ranks.shape == (b, n, d)
+    # the law of tests/test_torch_schemes.py: each server's mean row weight
+    # within 6 sigma of n·P[bit = 1 | even column]
+    x = (1 - 2 * theta) ** d
+    p_even = theta * (1 - x / (1 - 2 * theta)) / (1 + x)
+    q_idx = torch.randint(0, n, (b,), generator=torch.Generator().manual_seed(1),
+                          dtype=torch.int32).to("cuda")
+    m = sparse.assemble_query_matrix(pre, q_idx)
+    weights = m.sum(-1, dtype=torch.float64)      # [d, B]
+    sigma_mean = math.sqrt(n * p_even * (1 - p_even) / (d * b))
+    assert abs(float(weights.mean()) - p_even * n) < 6 * sigma_mean
+    del m, pre
+    store = make_synthetic_store(n, 4, seed=2, device=cuda_device)
+    out = sparse.retrieve(gen, store, d, theta, q_idx)
+    _same(out, store.packed[q_idx.long()])
+
+
+# ---------------------------------------------------------------- training
+def _grads_of(loss_fn, params, batch):
+    """(loss, gradients in leaf order) of ``loss_fn`` at ``params``."""
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import value_and_grad
+
+    loss, _, grads = value_and_grad(loss_fn, params, batch)
+    return loss, tree_leaves(grads)
+
+
+def _close_scaled(got, want, tol):
+    """|got - want| <= tol · max|want| (one scale a tensor)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, f"{err} > {tol} x {scale}"
+
+
+def test_bert4rec_loss_gradients_on_the_card_equal_the_cpus(cuda_device):
+    """Queue C's fault 1: on the card the attention's output carries a
+    gradient (the flash kernel forward, the plain path backward), so every
+    weight of BERT4Rec's loss gets the CPU's gradient."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import bert4rec_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.train.train_step import recsys_loss_fn
+
+    cfg = get_arch("bert4rec").reduced()
+    model = R.bert4rec_init(torch.Generator(device="cuda").manual_seed(1), cfg)
+    tree = model.tree()
+    host = R.BERT4Rec(tree, cfg).to("cpu").tree()
+    batch = bert4rec_batch(cfg, 4, seed=0, step=0)
+    launches = flash_attention_fwd.launches
+    loss, grads = _grads_of(recsys_loss_fn(cfg), tree, batch)
+    assert flash_attention_fwd.launches == launches + cfg.n_blocks
+    want_loss, want = _grads_of(recsys_loss_fn(cfg), host, batch)
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=1e-5)
+    for g, w in zip(grads, want):
+        assert float(w.abs().max()) > 0
+        _close_scaled(g, w, 1e-4)
+
+
+ATTN_GRAD_SETTINGS = [dict(causal=True, window=None, cap=0.0),
+                      dict(causal=True, window=24, cap=0.0),
+                      dict(causal=False, window=None, cap=0.0),
+                      dict(causal=True, window=None, cap=20.0)]
+
+
+@pytest.mark.parametrize("setting", ATTN_GRAD_SETTINGS,
+                         ids=["causal", "window", "bidirectional", "cap"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_attention_gradients_on_the_card_equal_the_cpus(cuda_device, dtype,
+                                                        d, setting):
+    """Through ``gqa_attention`` (GQA 4/2): the output carries a grad_fn,
+    the forward launches the kernel once, and q's, k's and v's gradients
+    equal the CPU's plain path's (f32: 1e-5 of the largest; bf16: 3e-2,
+    the plain path's bf16 scores and softmax rounded on both sides). Under
+    ``no_grad`` the output has no grad_fn, and the kernel launches once."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(d)
+    b, s, hq, hkv = 2, 80, 4, 2
+    base = [torch.randn((b, s, h, d), generator=gen) for h in (hq, hkv, hkv)]
+    w = torch.randn((b, s, hq, d), generator=gen)
+    kw = dict(causal=setting["causal"], window=setting["window"],
+              attn_softcap=setting["cap"])
+
+    def grads(device):
+        q, k, v = (t.to(device, dtype).requires_grad_() for t in base)
+        out = L.gqa_attention(q, k, v, **kw)
+        assert out.grad_fn is not None
+        torch.sum(out.float() * w.to(device)).backward()
+        return [t.grad for t in (q, k, v)]
+
+    launches = flash_attention_fwd.launches
+    got = grads(cuda_device)
+    assert flash_attention_fwd.launches == launches + 1
+    want = grads("cpu")
+    for g, wt in zip(got, want):
+        _close_scaled(g, wt, 1e-5 if dtype == torch.float32 else 3e-2)
+    with torch.no_grad():
+        q, k, v = (t.to(cuda_device, dtype).requires_grad_() for t in base)
+        out = L.gqa_attention(q, k, v, **kw)
+    assert out.grad_fn is None
+    assert flash_attention_fwd.launches == launches + 2
+
+
+@pytest.mark.parametrize("model", ["smollm", "bert4rec"])
+def test_one_training_step_on_the_card_matches_the_cpu(cuda_device, model):
+    """A reduced SmolLM step (f32, remat on, loss chunks of 8) and a
+    BERT4Rec step by ``make_train_step`` with AdamW on the card, against
+    the same step on the CPU from the same weights: the gradients within
+    1e-4 of each leaf's largest, the loss and the updated parameters
+    within 1e-5 (the embedding's and the gathers' backward add by atomics
+    on the card)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import bert4rec_batch, lm_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import lm_loss_fn, recsys_loss_fn
+
+    if model == "smollm":
+        cfg = dc.replace(get_arch("smollm-135m").reduced(), remat=True,
+                         loss_chunk=8)
+        tree = T.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                         cfg).tree()
+        loss_fn = lm_loss_fn(cfg)
+        batch = {"tokens": lm_batch(cfg, 4, 32, seed=0, step=0)["tokens"]}
+        per_step = 2 * cfg.n_layers     # the forward and the remat
+    else:
+        cfg = get_arch("bert4rec").reduced()
+        tree = R.bert4rec_init(torch.Generator(device="cuda").manual_seed(1),
+                               cfg).tree()
+        loss_fn = recsys_loss_fn(cfg)
+        batch = bert4rec_batch(cfg, 4, seed=0, step=0)
+        per_step = cfg.n_blocks
+    host = tree_map(lambda t: t.detach().cpu(), tree)
+    launches = flash_attention_fwd.launches
+    _, grads = _grads_of(loss_fn, tree, batch)
+    assert flash_attention_fwd.launches == launches + per_step
+    _, want_grads = _grads_of(loss_fn, host, batch)
+    for g, w in zip(grads, want_grads):
+        _close_scaled(g, w, 1e-4)
+    lr = 1e-3
+    init_fn, step_fn = make_train_step(loss_fn, AdamW(lr=lr))
+    state, metrics = step_fn(init_fn(tree), batch)
+    want_state, want = step_fn(init_fn(host), batch)
+    torch.testing.assert_close(metrics["loss"].cpu(), want["loss"],
+                               rtol=1e-5, atol=1e-5)
+    # AdamW's first step is ≈ lr·g/(|g| + eps): held where the CPU's
+    # gradient is above 1e-4 of its leaf's largest, else each side's move
+    # to lr (1 + wd·|p|)
+    for got, ref, p0, g in zip(tree_leaves(state.params),
+                               tree_leaves(want_state.params),
+                               tree_leaves(host), want_grads):
+        got, big = got.cpu(), g.abs() > 1e-4 * float(g.abs().max())
+        torch.testing.assert_close(got[big], ref[big], rtol=1e-5, atol=1e-5)
+        bound = lr * (1 + 0.01 * p0[~big].abs()) * (1 + 1e-5) + 1e-7
+        assert bool(((got[~big] - p0[~big]).abs() <= bound).all())
+        assert bool(((ref[~big] - p0[~big]).abs() <= bound).all())

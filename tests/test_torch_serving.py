@@ -497,6 +497,13 @@ def _port_sources():
 def test_port_imports_neither_jax_nor_the_reference_package():
     files = _port_sources()
     assert len(files) > 20
+    rel = {p.relative_to(REPO).as_posix() for p in files}
+    for covered in ("src/repro_torch/train/__init__.py",
+                    "src/repro_torch/train/optimizer.py",
+                    "src/repro_torch/train/checkpoint.py",
+                    "src/repro_torch/train/train_step.py",
+                    "src/repro_torch/launch/train.py"):
+        assert covered in rel, covered
     for path in files:
         hit = FORBIDDEN.search(path.read_text(encoding="utf-8"))
         assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0)!r}"
