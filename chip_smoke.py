@@ -45,8 +45,15 @@ ids in one Sparse-PIR plan of 1.52·10^9 draws); then training: SmolLM-135M
 at full width for 20 steps of 8 x 2048 tokens (the flash kernel forward,
 twice a layer with remat, the plain attention's gradient), one step of
 each model on the card against the CPU, BERT4Rec and the GCN trained, and
-the training launcher's resume and int8 error feedback. Builds the CUDA
-kernels from the
+the training launcher's resume and int8 error feedback; and last the cells
+of ``launch/cells.py``: each counted on ``meta`` tensors, those whose
+counted peak fits the card built at full shape and run there (pir-ct's
+two on the card's mesh of 8 positions, their answers bit-equal to the
+fold kernel's; SmolLM's 32 x 32 768 prefill, BERT4Rec's serve_p99, the
+GCN's Cora step, and the recommenders', GCN's and gemma-2's long-decode
+cells that fit), three at cut shapes on the card against the CPU, and
+the dry run of five on 256 meta positions with their roofline rows.
+Builds the CUDA kernels from the
 nine sources in this tree (flash attention has two: bf16 at head dims 64
 and 128 on wgmma, everything else on the TF32 tensor cores through
 mma.sync in three passes; the Sparse-PIR index compaction in front of the
@@ -4142,6 +4149,279 @@ def train_resume(dev, card, flash, read_counts, reset_counts):
     return counts
 
 
+# ---------------------------------------------- the cells of launch/cells.py
+# the five cells each run (the others run when their count fits), the mesh
+# each runs on (pir-ct on the one-card mesh of 8 positions, the reference's
+# xorbfly rules), and the share of the card's free memory a cell may take
+CELLS_CARD = (("pir-ct", "serve_online"), ("pir-ct", "serve_batch"),
+              ("smollm-135m", "prefill_32k"), ("bert4rec", "serve_p99"),
+              ("gcn-cora", "full_graph_sm"))
+CELLS_FIT = 0.9
+# card against CPU at a cut shape: the port's card tests' tolerance for its
+# models (tests/test_torch_cuda.py, reduced models against the CPU)
+CELL_TOL = {"rtol": 1e-4, "atol": 1e-4}
+
+
+def _spec(arch, name, **over):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+
+    sp = next(s for s in get_arch(arch).SHAPES if s.name == name)
+    return ShapeSpec.make(sp.name, sp.kind, **dict(sp.p(), **over)) if over \
+        else sp
+
+
+def _cell_mesh(arch, device, one=False):
+    """The mesh a cell runs on: pir-ct's on the 8 positions of the card,
+    the others (and any cell when ``one``) on one position."""
+    from repro_torch.dist import make_mesh
+
+    shape = MESH_SHAPE if arch == "pir-ct" and not one else (1, 1)
+    return make_mesh(shape, ("data", "model"), [device])
+
+
+def _cell_rules(sp):
+    from repro_torch.launch.cells import rules_for_cell
+
+    return _rules(**rules_for_cell(sp))
+
+
+def _count_cell(arch, sp, one=False):
+    """The cell's meta count on the mesh it runs on: its arguments' bytes
+    at one position and in all (on one card every position's blocks lie
+    on the card), the counted peak, flops and kernels."""
+    from repro_torch.dist import mesh_rules
+    from repro_torch.launch.cells import build_cell_sanitized
+    from repro_torch.launch.dryrun import arg_bytes_per_position
+    from repro_torch.launch.op_cost import _tensors, count_cost
+
+    with mesh_rules(_cell_mesh(arch, "meta", one), _cell_rules(sp)):
+        cell = build_cell_sanitized(arch, sp, device="meta")
+        if cell.skip_reason:
+            return None
+        cost = count_cost(cell.fn, *cell.args)
+        return {"args_bytes": arg_bytes_per_position(cell.args,
+                                                     cell.in_shardings),
+                "args_bytes_all": sum(
+                    t.numel() * t.element_size()
+                    for t in _tensors(cell.args)),
+                "peak_bytes": cost.peak_bytes, "flops": cost.flops,
+                "kernels": dict(cost.kernels)}
+
+
+def _tree_close(label, got, want, tol):
+    """Every tensor of ``got`` (the card's) against ``want`` (the CPU's):
+    the same shape, finite, within ``tol``; the largest absolute error."""
+    if isinstance(want, torch.Tensor):
+        if not want.is_floating_point():
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{label}: integers differ")
+            return 0.0
+        return close_to_cpu(label, got.float(), want.float(), tol)
+    if isinstance(want, dict):
+        return max([_tree_close(f"{label}/{k}", got[k], v, tol)
+                    for k, v in want.items()] or [0.0])
+    if isinstance(want, (list, tuple)):
+        return max([_tree_close(f"{label}/{i}", g, w, tol)
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    return 0.0
+
+
+def _run_cell(arch, sp, dev, read_counts, reset_counts, counted):
+    """Build the cell on the card at its full shape and run it: a warm-up,
+    then ``runs`` timed by CUDA events; the peak above the start beside
+    the counted one, each kernel's launches a run."""
+    from repro_torch.dist import mesh_rules
+    from repro_torch.launch.cells import build_cell_sanitized
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
+    mesh = _cell_mesh(arch, dev)
+    with mesh_rules(mesh, _cell_rules(sp)):
+        t = time.perf_counter()
+        cell = build_cell_sanitized(arch, sp, device=dev, seed=0)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        args_bytes = torch.cuda.memory_allocated() - at_start
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        runs = 3 if first_s < 2.0 else 2
+        times = []
+        for _ in range(runs):
+            del out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = cell.fn(*cell.args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() - before
+        counts = {k: v for k, v in read_counts().items() if v}
+    ms = sorted(times)[len(times) // 2]
+    line = {
+        "arch": arch, "shape": sp.name, "kind": sp.kind,
+        "mesh": list(mesh.devices.shape), "build_s": build_s,
+        "first_s": first_s, "runs_ms": times, "ms": ms,
+        "args_bytes": args_bytes,
+        "counted_args_bytes": counted["args_bytes_all"],
+        "peak_bytes": peak, "counted_peak_bytes": counted["peak_bytes"],
+        "peak_over_counted": (peak / counted["peak_bytes"]
+                              if counted["peak_bytes"] else None),
+        "launches": counts, "launches_a_run": {
+            k: v / (runs + 1) for k, v in counts.items()},
+        "counted_kernels": counted["kernels"],
+        "model_flops": cell.model_flops, "counted_flops": counted["flops"],
+        "model_flops_fraction": cell.model_flops / (ms * 1e-3
+                                                    * BF16_FLOPS_PER_S),
+    }
+    return cell, out, line
+
+
+def cells_card(dev, card, read_counts, reset_counts):
+    """Phase ``cells_card``: every cell of ``launch/cells.py`` counted on
+    ``meta`` (a mesh of one position); each whose counted peak plus its
+    arguments fits in ``CELLS_FIT`` of the card's free memory built at its
+    full shape on the card and run (the five of ``CELLS_CARD`` first, on
+    their meshes, counted again there); the PIR answers held bit for bit
+    against the fold kernel over the store the planes came from. Returns
+    the kernels' launches over the cells' runs."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.configs import pir_ct
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cells as C
+
+    t_phase = time.perf_counter()
+    counted, t = {}, time.perf_counter()
+    for arch in list_archs():
+        for sp in get_arch(arch).SHAPES:
+            got = _count_cell(arch, sp, one=True)
+            if got is not None:
+                counted[arch, sp.name] = got
+    count_s = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    budget = CELLS_FIT * free
+    need = {k: v["args_bytes"] + v["peak_bytes"] for k, v in counted.items()}
+    order = list(CELLS_CARD) + sorted(k for k in counted
+                                      if k not in CELLS_CARD)
+    lines, unfit, totals = [], {}, {}
+    for arch, name in order:
+        if need[arch, name] > budget:
+            unfit[f"{arch}/{name}"] = {
+                "counted_args_bytes": counted[arch, name]["args_bytes"],
+                "counted_peak_bytes": counted[arch, name]["peak_bytes"],
+                "budget_bytes": budget}
+            continue
+        sp = _spec(arch, name)
+        # the five on their own meshes (pir-ct's 8 positions): counted there
+        here = (_count_cell(arch, sp) if arch == "pir-ct"
+                else counted[arch, name])
+        cell, out, line = _run_cell(arch, sp, dev, read_counts, reset_counts,
+                                    here)
+        if arch == "pir-ct":
+            masks, planes = cell.args
+            words = C.pir_store_words(pir_ct.CONFIG, planes.shape[0], dev,
+                                      seed=0)
+            want = ops.server_answer_fold(words, masks)
+            line["equals_fold_bits"] = bool(torch.equal(out, want))
+            if not line["equals_fold_bits"]:
+                raise AssertionError(f"cells_card {arch}/{name}: the parity "
+                                     "answer differs from the fold's")
+            del words, want
+        for k, v in line["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        del cell, out
+        emit({"phase": "cells_card", "card": card, **line})
+        lines.append(line)
+    for arch, name in CELLS_CARD:
+        if f"{arch}/{name}" in unfit:
+            print(f"cells_card: {arch}/{name} does not fit: "
+                  f"{unfit[f'{arch}/{name}']}", flush=True)
+    by_cell = {f"{l['arch']}/{l['shape']}": l["launches"] for l in lines}
+    for arch, name, kernel in (("pir-ct", "serve_online",
+                                "parity_matmul_packed"),
+                               ("pir-ct", "serve_batch",
+                                "parity_matmul_packed"),
+                               ("smollm-135m", "prefill_32k",
+                                "flash_wgmma_kernel"),
+                               ("bert4rec", "serve_p99", "flash_fwd_kernel")):
+        if by_cell.get(f"{arch}/{name}", {}).get(kernel, 0) <= 0:
+            raise AssertionError(f"cells_card: {arch}/{name} never launched "
+                                 f"{kernel}")
+    emit({"phase": "cells_card_summary", "card": card,
+          "count_s": count_s, "free_bytes": free, "total_bytes": total,
+          "total_memory": torch.cuda.get_device_properties(dev).total_memory,
+          "budget_bytes": budget, "ran": list(by_cell),
+          "did_not_fit": unfit, "seconds": time.perf_counter() - t_phase})
+    return totals
+
+
+def cells_vs_cpu(dev, card):
+    """Phase ``cells_vs_cpu``: cells at cut shapes built on the CPU from
+    one seed, run there and, their weights and inputs copied, on the card;
+    the outputs within ``CELL_TOL``. Cuts: SmolLM's ``reduced()`` (f32)
+    prefill of 2 x 256 tokens; BERT4Rec's serve_p99 at 16 users; the GCN's
+    full_graph_sm step as it is (2708 nodes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import build_cell_sanitized, cell_to_device
+
+    cpu = torch.device("cpu")
+    cases = (
+        ("smollm-135m", _spec("smollm-135m", "prefill_32k", seq_len=256,
+                              global_batch=2),
+         get_arch("smollm-135m").reduced()),
+        ("bert4rec", _spec("bert4rec", "serve_p99", batch=16), None),
+        ("gcn-cora", _spec("gcn-cora", "full_graph_sm"), None),
+    )
+    out = []
+    for arch, sp, cfg in cases:
+        from repro_torch.dist import mesh_rules
+
+        with mesh_rules(_cell_mesh(arch, cpu), _cell_rules(sp)):
+            cell = build_cell_sanitized(arch, sp, device="cpu", seed=0,
+                                        cfg=cfg)
+            want = cell.fn(*cell.args)
+        card_cell = cell_to_device(cell, dev)
+        with mesh_rules(_cell_mesh(arch, dev), _cell_rules(sp)):
+            got = card_cell.fn(*card_cell.args)
+        err = _tree_close(f"cells_vs_cpu {arch}/{sp.name}", got, want,
+                          CELL_TOL)
+        out.append({"arch": arch, "shape": sp.name, "cut": sp.p(),
+                    "config": "reduced()" if cfg is not None else "CONFIG",
+                    "max_abs_err": err, "tolerance": CELL_TOL})
+        del cell, card_cell, got, want
+    emit({"phase": "cells_vs_cpu", "card": card, "cases": out})
+
+
+def dryrun_meta(card):
+    """Phase ``dryrun_meta``: ``dryrun.run_cell`` for the five cells on the
+    single-pod mesh of 256 meta positions, each record and its
+    ``roofline_row`` (bounds at the H100's peaks, not measurements)."""
+    from repro_torch.launch import dryrun, roofline
+
+    out_dir = str(ROOT / "build" / "dryrun_torch")
+    rows = []
+    for arch, name in CELLS_CARD:
+        rec = dryrun.run_cell(arch, _spec(arch, name), False, out_dir,
+                              force=True)
+        if rec["ok"] is not True:
+            raise AssertionError(f"dryrun_meta {arch}/{name}: "
+                                 f"{rec.get('error')}")
+        rows.append({"record": {k: rec[k] for k in (
+            "chips", "flops", "bytes_accessed", "collectives",
+            "bytes_per_device", "model_flops", "kernels", "count_s")},
+            "roofline": roofline.roofline_row(rec)})
+    emit({"phase": "dryrun_meta", "card": card, "cells": rows})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4942,6 +5222,15 @@ def main() -> int:
     by_path.update(train_gcn(dev, smi, read_counts, reset_counts))
     by_path["train_resume"] = train_resume(
         dev, smi, flash_attention_fwd, read_counts, reset_counts)
+
+    # ---------------------------- 15 the cells, the dry run, the roofline
+    # every cell of launch/cells.py counted on meta; those that fit the card
+    # built at full shape and run on it (the PIR answers against the fold
+    # bit for bit), three cut cells on the card against the CPU, and the
+    # dry run of the five on 256 meta positions with their roofline rows
+    by_path["cells_card"] = cells_card(dev, smi, read_counts, reset_counts)
+    cells_vs_cpu(dev, smi)
+    dryrun_meta(smi)
 
     # each kernel's count comes from its path, else the first path that
     # runs it; every path's own counts ride along. An operand set on no

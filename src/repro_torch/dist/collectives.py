@@ -27,15 +27,27 @@ device). Three families:
 The lookups take global tensors and fall back to their single-device form
 when no mesh is active, the logical axis is unmapped, or shapes don't
 divide — identical values either way.
+
+Under an active count (:mod:`repro_torch._cost`) each collective reports
+its bytes at one mesh position, as the reference's cost parser counts
+them per device, under the reference's op kinds: ``all_gather`` as
+``all-gather`` (the gathered result), ``psum_scatter`` as
+``reduce-scatter`` (the operand: the result times the group), the sum and
+max all-reduces (and with them :func:`compressed_psum`'s int8 payload and
+shared scale, and the lookups' partial sums) as ``all-reduce``, and each
+round of :func:`xor_psum`'s butterfly as ``collective-permute``, which is
+what the reference's ``ppermute`` butterfly lowers to.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import _cost
 from repro_torch.dist.sharding import (
     Mesh,
     ShardedArray,
@@ -77,20 +89,31 @@ def _check_shards(shards: Sequence[torch.Tensor], mesh: Mesh) -> None:
         )
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _all_reduce(shards: Sequence[torch.Tensor], mesh: Mesh, axes,
                 op: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
                 ) -> Shards:
     """Each position gets ``op`` folded over its group along ``axes`` (the
     gather-then-fold all-reduce), in block order; the fold runs on the
-    position's own device."""
-    out = []
+    position's own device. The members of a group on one device fold the
+    same tensors in the same order, so the fold runs once for them and
+    they share its result (read-only, as every caller uses it)."""
+    if _cost.active():
+        _cost.record_collective("all-reduce", _nbytes(shards[0]))
+    out, done = [], {}
     for i, pos in enumerate(mesh.positions()):
         dev = shards[i].device
-        acc = None
-        for g in mesh.group_of(pos, axes):
-            x = shards[mesh.block_of(g, mesh.axis_names)].to(dev)
-            acc = x if acc is None else op(acc, x)
-        out.append(acc)
+        group = tuple(mesh.group_of(pos, axes))
+        if (group, dev) not in done:
+            acc = None
+            for g in group:
+                x = shards[mesh.block_of(g, mesh.axis_names)].to(dev)
+                acc = x if acc is None else op(acc, x)
+            done[group, dev] = acc
+        out.append(done[group, dev])
     return out
 
 
@@ -114,13 +137,22 @@ def all_gather(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
                axis_names) -> Shards:
     """Tiled all-gather over dim 0 (``jax.lax.all_gather(..., tiled=True)``
     in ``shard_map``): each position gets its group's tensors over
-    ``axis_names`` concatenated in block order, on its own device.
+    ``axis_names`` concatenated in block order, on its own device (the
+    members of a group on one device share one concatenation).
     ``mesh=None`` takes the active mesh."""
     mesh = _resolve_mesh(mesh, "all_gather")
     _check_shards(shards, mesh)
     axes = _axes(axis_names)
-    return [torch.cat(_group(shards, mesh, pos, axes))
-            for pos in mesh.positions()]
+    if _cost.active():
+        _cost.record_collective("all-gather", _nbytes(shards[0]) * math.prod(
+            mesh.shape[a] for a in axes))
+    out, done = [], {}
+    for pos in mesh.positions():
+        key = (tuple(mesh.group_of(pos, axes)), mesh.device_at(pos))
+        if key not in done:
+            done[key] = torch.cat(_group(shards, mesh, pos, axes))
+        out.append(done[key])
+    return out
 
 
 def psum_scatter(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
@@ -129,7 +161,10 @@ def psum_scatter(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
     scatter_dimension=0, tiled=True)``): the group over ``axis_names``
     sums its tensors, and each position keeps the rows of its block,
     ``dim0 / group size`` of them, summed in block order on its own
-    device. ``mesh=None`` takes the active mesh."""
+    device. Where a whole group lies on one device, it sums the whole
+    tensors once, in that order (the same bits as a block at a time: the
+    sum is elementwise), and each member keeps a view of its rows.
+    ``mesh=None`` takes the active mesh."""
     mesh = _resolve_mesh(mesh, "psum_scatter")
     _check_shards(shards, mesh)
     axes = _axes(axis_names)
@@ -138,15 +173,28 @@ def psum_scatter(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
     if rows % size:
         raise ValueError(f"dim 0 of {rows} does not split into {size} blocks")
     step = rows // size
-    out = []
-    for pos in mesh.positions():
+    if _cost.active():
+        _cost.record_collective("reduce-scatter", _nbytes(shards[0]))
+    positions = list(mesh.positions())
+    keys = [(tuple(mesh.group_of(pos, axes)), mesh.device_at(pos))
+            for pos in positions]
+    whole = {k for k, c in collections.Counter(keys).items() if c == size}
+    out, done = [], {}
+    for pos, key in zip(positions, keys):
         b = mesh.block_of(pos, axes)
-        acc = None
-        for x in _group(
-                [s[b * step:(b + 1) * step] for s in shards], mesh, pos, axes):
-            acc = x.clone() if acc is None else acc.add_(x)
-        out.append(acc)
+        block = slice(b * step, (b + 1) * step)
+        if key in whole and key not in done:
+            done[key] = _sum_in_order(_group(shards, mesh, pos, axes))
+        out.append(done[key][block] if key in whole else _sum_in_order(
+            _group([s[block] for s in shards], mesh, pos, axes)))
     return out
+
+
+def _sum_in_order(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    acc = None
+    for x in xs:
+        acc = x.clone() if acc is None else acc.add_(x)
+    return acc
 
 
 # --------------------------------------------------------------------------
@@ -172,6 +220,9 @@ def xor_psum(shards: Sequence[torch.Tensor], mesh: Optional[Mesh],
         if size & (size - 1) == 0:
             k = 1
             while k < size:
+                if _cost.active():
+                    _cost.record_collective("collective-permute",
+                                            _nbytes(x[0]))
                 nxt = []
                 for i, pos in enumerate(mesh.positions()):
                     partner = list(pos)

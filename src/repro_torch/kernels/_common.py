@@ -5,7 +5,24 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["xor_reduce", "require", "stream_ptr", "check_launch"]
+__all__ = ["xor_reduce", "require", "stream_ptr", "check_launch",
+           "kernel_device"]
+
+# where a wrapper runs: its plain version, its kernel, or (for the wrappers
+# whose output shape does not depend on the data) the kernel's shape alone
+_DEVICE_TYPES = ("cpu", "cuda")
+
+
+def kernel_device(t: torch.Tensor, name: str, meta: bool = False) -> str:
+    """``t``'s device type as a wrapper dispatches on it: ``"cpu"`` (the
+    plain version), ``"cuda"`` (the kernel) or, where ``meta`` says the
+    wrapper answers by shape, ``"meta"``. Any other device raises: it
+    would otherwise reach a build and a launch on a null pointer."""
+    kind = t.device.type
+    if kind in _DEVICE_TYPES or (meta and kind == "meta"):
+        return kind
+    raise ValueError(f"{name} runs on the CPU (its plain version) or on a "
+                     f"CUDA device (its kernel), not on {t.device}")
 
 
 def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -31,6 +31,12 @@ zero-pads them, and give the padded keys −inf: a row that the mask
 empties (Sq > Sk with a window) averages its Sk keys, as the plain
 version does. GQA's broadcast of K/V over the query heads happens in
 :func:`repro_torch.models.layers.gqa_attention`.
+
+On ``meta`` tensors (a dry run) :func:`flash_attention_fwd` checks the
+operands as for the card and returns an empty result, building and
+launching nothing; there and on the card it reports the kernel's cost
+(:func:`flash_cost`) to an active count (:mod:`repro_torch._cost`). Any
+other device raises.
 """
 
 from __future__ import annotations
@@ -38,12 +44,17 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch import _cost
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_launch, require, stream_ptr
+from repro_torch.kernels._common import (
+    check_launch, kernel_device, require, stream_ptr,
+)
 
-__all__ = ["flash_attention_fwd", "flash_attention_plain"]
+__all__ = ["flash_attention_fwd", "flash_attention_plain", "attention_pairs",
+           "flash_cost"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
@@ -84,6 +95,27 @@ def _check_args(q, k, v, window, softcap, q_offset) -> None:
     # the reference's gqa_attention takes it: no caller of the port has one
     if q_offset < 0 or q_offset + q.shape[1] >= 2**31:
         raise ValueError(f"q_offset must be in [0, 2**31 - Sq), got {q_offset}")
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+                    q_offset: int = 0) -> int:
+    """Unmasked (query, key) pairs of one attention row (keys from 0,
+    queries from ``q_offset``), the causal mask and the window honoured.
+    In numpy: host arithmetic that a count of the run's torch ops must not
+    see."""
+    qpos = np.arange(sq, dtype=np.int64) + int(q_offset)
+    hi = np.minimum(qpos + 1, sk) if causal else np.full(sq, sk, np.int64)
+    lo = (np.clip(qpos - int(window) + 1, 0, sk) if window is not None
+          else np.zeros(sq, np.int64))
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_cost(bh: int, sq: int, sk: int, d: int, elem: int, causal: bool,
+               window: Optional[int], q_offset: int = 0):
+    """The kernel's own cost: 4·d flops a unmasked pair, and Q, K, V read
+    once and O written once (bytes of ``elem`` each)."""
+    flops = 4.0 * bh * attention_pairs(sq, sk, causal, window, q_offset) * d
+    return flops, bh * (2 * sq + 2 * sk) * d * elem
 
 
 def flash_attention_plain(
@@ -133,7 +165,7 @@ def flash_attention_fwd(
     every launch, ``kernel_launches`` each kernel's."""
     softcap, q_offset = float(softcap), int(q_offset)
     _check_args(q, k, v, window, softcap, q_offset)
-    if q.device.type == "cpu":
+    if kernel_device(q, "flash_attention_fwd", meta=True) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_offset=q_offset)
     dev = q.device
@@ -163,6 +195,13 @@ def flash_attention_fwd(
     # kernels take -1 for none
     win = (-1 if window is None or int(window) >= q_offset + sq
            else int(window))
+    if _cost.active():
+        _cost.record_kernel(kernel, *flash_cost(
+            bh, sq, sk, d, q.element_size(), causal,
+            None if win < 0 else win, q_offset))
+    if dev.type == "meta":
+        # answered by shape: nothing is built or launched
+        return out
     lib = _build.library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             bh, sq, sk, d, int(bool(causal)), win, q_offset, softcap)

@@ -68,7 +68,9 @@ import torch
 
 from repro_torch.db.packing import WORD_DTYPE
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_launch, require, stream_ptr
+from repro_torch.kernels._common import (
+    check_launch, kernel_device, require, stream_ptr,
+)
 from repro_torch.kernels.gather_xor import _check_gather_args, gather_xor_plain
 
 __all__ = [
@@ -292,7 +294,7 @@ def fused_gather_fold(
     if block_w < 1:
         raise ValueError(f"block_w must be positive, got {block_w}")
     _check_gather_args(db, idx)
-    if db.device.type == "cpu":
+    if kernel_device(db, "fused_gather_fold") == "cpu":
         return fused_gather_fold_plain(db, idx)
     require(db, "db", WORD_DTYPE, 2, db.device)
     require(idx, "idx", torch.int32, 2, db.device)
@@ -375,7 +377,7 @@ def fused_multi_gather_fold(
     if not isinstance(offsets, torch.Tensor):
         offsets = torch.as_tensor(offsets, dtype=torch.int32, device=db.device)
     requests = _check_multi_args(db, idx, offsets, k_max, grid_order)
-    if db.device.type == "cpu":
+    if kernel_device(db, "fused_multi_gather_fold") == "cpu":
         return fused_multi_gather_fold_plain(db, idx, offsets, k_max)
     dev = db.device
     require(db, "db", WORD_DTYPE, 2, dev)

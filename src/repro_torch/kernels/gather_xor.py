@@ -36,7 +36,7 @@ import torch
 from repro_torch.db.packing import WORD_DTYPE
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_launch, require, stream_ptr, xor_reduce,
+    check_launch, kernel_device, require, stream_ptr, xor_reduce,
 )
 
 __all__ = [
@@ -131,7 +131,7 @@ def gather_xor(
     if block_w < 1:
         raise ValueError(f"block_w must be positive, got {block_w}")
     _check_gather_args(db, idx)
-    if db.device.type == "cpu":
+    if kernel_device(db, "gather_xor") == "cpu":
         return gather_xor_plain(db, idx)
     require(db, "db", WORD_DTYPE, 2, db.device)
     require(idx, "idx", torch.int32, 2, db.device)
@@ -197,7 +197,7 @@ def indices_from_mask(mask: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError(f"need a [q, n] mask, got {tuple(mask.shape)}")
     if m < 0:
         raise ValueError(f"m must be >= 0, got {m}")
-    if mask.device.type == "cpu":
+    if kernel_device(mask, "indices_from_mask") == "cpu":
         return indices_from_mask_plain(mask, m)
     q, n = mask.shape
     if max(q, n, m) >= 2**31 or q > _MAX_GRID_Y:

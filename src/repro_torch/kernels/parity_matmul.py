@@ -22,7 +22,11 @@ the tensor cores, or the ``[n, B]`` view ``.t()`` of a contiguous
 :func:`repro_torch.db.packing.bitplanes_from_packed` returns and the
 serving path holds), which they read as it lies. The plain versions,
 taken only for tensors on the CPU, are :func:`parity_matmul_plain` and
-:func:`parity_matmul_packed_plain`.
+:func:`parity_matmul_packed_plain`. On ``meta`` tensors (a dry run) the
+wrappers check the operands as for the card and answer with an empty
+tensor of the result's shape, building and launching nothing; there and
+on the card they report the kernel's cost (:func:`parity_cost`) to an
+active count (:mod:`repro_torch._cost`). Any other device raises.
 """
 
 from __future__ import annotations
@@ -31,15 +35,17 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import _cost
 from repro_torch.db import packing
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_launch, stream_ptr
+from repro_torch.kernels._common import check_launch, kernel_device, stream_ptr
 
 __all__ = [
     "parity_matmul",
     "parity_matmul_packed",
     "parity_matmul_plain",
     "parity_matmul_packed_plain",
+    "parity_cost",
 ]
 
 _PLAIN_CHUNK_N = 1 << 16
@@ -109,6 +115,13 @@ def _planes_storage(planes: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return planes, False
 
 
+def parity_cost(q: int, n: int, b: int, packed: bool):
+    """The kernel's own cost: 2·q·n·B int8 operations, and the uint8 mask
+    and planes read once and the output written once (bytes)."""
+    out = q * -(-b // packing.WORD_BITS) * 4 if packed else q * b
+    return 2.0 * q * n * b, q * n + n * b + out
+
+
 def _launch(fn, mask: torch.Tensor, planes: torch.Tensor,
             packed: bool) -> torch.Tensor:
     if planes.device != mask.device:
@@ -125,6 +138,11 @@ def _launch(fn, mask: torch.Tensor, planes: torch.Tensor,
     cols = -(-b // packing.WORD_BITS) if packed else b
     if q == 0 or b == 0 or n == 0:
         return torch.zeros((q, cols), dtype=dtype, device=dev)
+    if _cost.active():
+        _cost.record_kernel(fn.__name__, *parity_cost(q, n, b, packed))
+    if dev.type == "meta":
+        # answered by shape: nothing is built or launched
+        return torch.empty((q, cols), dtype=dtype, device=dev)
     # the uint8 form is written four bit columns a word: rows of a
     # multiple of 4 bytes
     ld_out = cols if packed else -(-b // 4) * 4
@@ -159,7 +177,7 @@ def parity_matmul(mask: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     does (uint8 reaches the tensor cores as it is, other integers as
     ``x & 1``); bool and float operands hold 0/1 (nonzero -> 1)."""
     _check_shapes(mask, planes)
-    if mask.device.type == "cpu":
+    if kernel_device(mask, "parity_matmul", meta=True) == "cpu":
         return parity_matmul_plain(mask, planes)
     return _launch(parity_matmul, mask, planes, packed=False)
 
@@ -171,7 +189,7 @@ def parity_matmul_packed(mask: torch.Tensor,
     high bits of a ragged last word are 0. Equal to
     ``pack_bits(parity_matmul(mask, planes))``; the same inputs."""
     _check_shapes(mask, planes)
-    if mask.device.type == "cpu":
+    if kernel_device(mask, "parity_matmul_packed", meta=True) == "cpu":
         return parity_matmul_packed_plain(mask, planes)
     return _launch(parity_matmul_packed, mask, planes, packed=True)
 

@@ -27,7 +27,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_launch, require, stream_ptr
+from repro_torch.kernels._common import (
+    check_launch, kernel_device, require, stream_ptr,
+)
 
 __all__ = ["scatter_rows", "scatter_rows_plain"]
 
@@ -77,9 +79,10 @@ def scatter_rows(
     [m, W] -> a new [n, W] with ``out[rows[i]] = vals[i]`` applied in
     index order (last write wins); ``db`` itself when ``m == 0``."""
     _check_scatter_args(db, rows, vals)
+    on = kernel_device(db, "scatter_rows")
     if rows.shape[0] == 0:
         return db
-    if db.device.type == "cpu":
+    if on == "cpu":
         return scatter_rows_plain(db, rows, vals)
     dev = db.device
     if rows.dtype != torch.int32:

@@ -30,7 +30,7 @@ import torch
 from repro_torch.db.packing import WORD_DTYPE
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_launch, require, stream_ptr, xor_reduce,
+    check_launch, kernel_device, require, stream_ptr, xor_reduce,
 )
 
 __all__ = ["xor_fold", "xor_fold_plain"]
@@ -156,7 +156,7 @@ def xor_fold(db: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"shapes disagree: db {tuple(db.shape)}, "
                          f"mask {tuple(mask.shape)}")
     form = _form_for(mask.shape[0])
-    if db.device.type != "cpu":
+    if kernel_device(db, "xor_fold") == "cuda":
         return _launch(db, mask, form)
     _check_limits(form, mask.shape[0], db.shape[1])
     return xor_fold_plain(db, mask)

@@ -115,7 +115,10 @@ def fill_normal_(out: torch.Tensor, gen: torch.Generator,
     generator's device a block of leading rows at a time (at most
     ``_DRAW_ELEMS`` values) and cast into ``out``'s dtype and device: a
     leaf never exists whole in f32 (a Kimi-K2 expert leaf, [384, 7168,
-    2048], would be 22.5 GB)."""
+    2048], would be 22.5 GB). A ``meta`` tensor holds no values: nothing
+    is drawn for it (a dry run builds a model's shapes only)."""
+    if out.device.type == "meta":
+        return out
     if out.dim() == 0 or out.numel() <= _DRAW_ELEMS:
         return out.copy_(_normal(gen, out.shape) * scale)
     per_row = out[0].numel()

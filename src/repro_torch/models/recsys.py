@@ -288,8 +288,10 @@ def bert4rec_init(gen: torch.Generator, cfg: RecSysConfig,
     dev = resolve_device(device)
     d = cfg.embed_dim
     vocab = bert4rec_vocab(cfg)
-    embed = (L._normal(gen, (vocab, d)) * 0.02).to(dev)
-    pos = (L._normal(gen, (cfg.seq_len, d)) * 0.02).to(dev)
+    embed = L.init_leaves({"t": L.Leaf((vocab, d), 0.02)}, gen,
+                          torch.float32, dev)["t"]
+    pos = L.init_leaves({"t": L.Leaf((cfg.seq_len, d), 0.02)}, gen,
+                        torch.float32, dev)["t"]
 
     def block_init():
         return {

@@ -2004,3 +2004,38 @@ def test_one_training_step_on_the_card_matches_the_cpu(cuda_device, model):
         bound = lr * (1 + 0.01 * p0[~big].abs()) * (1 + 1e-5) + 1e-7
         assert bool(((got[~big] - p0[~big]).abs() <= bound).all())
         assert bool(((ref[~big] - p0[~big]).abs() <= bound).all())
+
+
+# ------------------------------------------------ the cells (launch/cells.py)
+@pytest.mark.parametrize("variant", ["baseline", "bf16", "reshard", "xorbfly"])
+def test_pir_cells_on_the_card_equal_the_cpus(cuda_device, monkeypatch,
+                                              variant):
+    """A pir-ct cell at a cut n (5000 records of the CT width, 64 queries)
+    built on the CPU, then its masks and planes copied to the card: the
+    card's answer equals the CPU's bit for bit, on a (2, 4) mesh of each
+    (records over both axes for reshard and xorbfly), and every variant
+    but the f32 baseline launches the parity kernel (8 a run on the
+    mesh for xorbfly)."""
+    from repro_torch.configs import pir_ct
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import DEFAULT_RULES, make_mesh, mesh_rules
+    from repro_torch.launch import cells as C
+
+    monkeypatch.setenv("REPRO_PIR_VARIANT", variant)
+    cfg = dataclasses.replace(pir_ct.reduced(), n_records=5000,
+                              record_bytes=1536)
+    sp = ShapeSpec.make("serve_batch", "pir_serve", query_batch=64)
+    rules = dict(DEFAULT_RULES, **C.rules_for_cell(sp))
+    axes = ("data", "model")
+    with mesh_rules(make_mesh((2, 4), axes, ["cpu"]), rules):
+        cell = C.build_cell_sanitized("pir-ct", sp, device="cpu", seed=4,
+                                      cfg=cfg)
+        want = cell.fn(*cell.args)
+    card = C.cell_to_device(cell, cuda_device)
+    before = parity_matmul_packed.launches
+    with mesh_rules(make_mesh((2, 4), axes, [cuda_device]), rules):
+        got = card.fn(*card.args)
+    launched = parity_matmul_packed.launches - before
+    assert torch.equal(got.cpu(), want)
+    assert launched == {"baseline": 0, "bf16": 1, "reshard": 1,
+                        "xorbfly": 8}[variant]

@@ -502,11 +502,36 @@ def test_port_imports_neither_jax_nor_the_reference_package():
                     "src/repro_torch/train/optimizer.py",
                     "src/repro_torch/train/checkpoint.py",
                     "src/repro_torch/train/train_step.py",
-                    "src/repro_torch/launch/train.py"):
+                    "src/repro_torch/launch/train.py",
+                    "src/repro_torch/_cost.py",
+                    "src/repro_torch/launch/cells.py",
+                    "src/repro_torch/launch/op_cost.py",
+                    "src/repro_torch/launch/dryrun.py",
+                    "src/repro_torch/launch/roofline.py"):
         assert covered in rel, covered
     for path in files:
         hit = FORBIDDEN.search(path.read_text(encoding="utf-8"))
         assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0)!r}"
+
+
+def test_every_reference_module_has_its_counterpart_in_the_port():
+    """The two trees' module lists: every module of the reference has a
+    namesake in the port but ``launch/hlo_cost.py``, which parses XLA's
+    HLO; the port has no compiler and counts its runs' aten ops instead
+    (``launch/op_cost.py``, its role). The port's own extras: the device
+    rule (``_device.py``), the cost counter (``_cost.py``), the numpy
+    bridge (``convert.py``), the kernels' build and shared checks
+    (``kernels/_build.py``, ``kernels/_common.py``), the launchers'
+    package file and ``op_cost.py``."""
+    def names(pkg):
+        root = REPO / "src" / pkg
+        return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
+
+    ref, port = names("repro"), names("repro_torch")
+    assert ref - port == {"launch/hlo_cost.py"}
+    assert port - ref == {"_device.py", "_cost.py", "convert.py",
+                          "kernels/_build.py", "kernels/_common.py",
+                          "launch/__init__.py", "launch/op_cost.py"}
 
 
 def test_port_never_probes_for_a_card_to_pick_the_cpu():
