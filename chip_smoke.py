@@ -27,8 +27,8 @@ on the card against the CPU) and BERT4Rec scoring 32 users whose item
 histories are fetched by Sparse-PIR; then the rest of the LM family at
 full width, one model at a time, each from a collected heap: gemma-2 2B
 (2 x 8192 tokens; its logit softcap and local window in
-``flash_attention.cu`` at head dim 256; the f32 model on the card against
-the CPU), Mistral-NeMo 12B (4 x 4096 tokens, wgmma at head dim 128),
+``flash_attention_wgmma.cu`` at head dim 256; the f32 model on the card
+against the CPU), Mistral-NeMo 12B (4 x 4096 tokens, wgmma at head dim 128),
 Moonlight 16B-A3B (48 MoE layers of 64 experts, 1 x 4096 tokens, the
 dropped assignments a layer; ``reduced()`` routed alike on the card and
 the CPU), one layer of Kimi-K2 (384 experts, 33.8 GB) and one Moonlight
@@ -54,8 +54,8 @@ GCN's Cora step, and the recommenders', GCN's and gemma-2's long-decode
 cells that fit), three at cut shapes on the card against the CPU, and
 the dry run of five on 256 meta positions with their roofline rows.
 Builds the CUDA kernels from the
-nine sources in this tree (flash attention has two: bf16 at head dims 64
-and 128 on wgmma, everything else on the TF32 tensor cores through
+nine sources in this tree (flash attention has two: bf16 at head dims 64,
+128 and 256 on wgmma, everything else on the TF32 tensor cores through
 mma.sync in three passes; the Sparse-PIR index compaction in front of the
 gather has one), holds each against its
 plain PyTorch version on the card (bit for bit for the six GF(2) kernels
@@ -2832,8 +2832,9 @@ def card_vs_cpu(label, model, cfg, tokens, kernel, read_counts,
 def serve_lm_gemma2(dev, card, flash, read_counts, reset_counts):
     """Full-width gemma-2 2B (26 layers, bf16, random weights from seed 0):
     2 requests of 8192 tokens and 32 greedy tokens each; every prefill
-    layer on ``flash_attention.cu`` (head dim 256) with cap 50, the even
-    layers with the 4096-token window. Then the f32 model, card against
+    layer on ``flash_attention_wgmma.cu`` (head dim 256) with cap 50, the
+    even layers with the 4096-token window; no prefill launch of
+    ``flash_attention.cu``. Then the f32 model, card against
     CPU: full width cut to 2 layers (one local, one global) at 1 x 512
     tokens, and ``reduced()`` (window 8, so it masks; the caps) at 1 x 64.
     Returns the path's counts."""
@@ -2854,8 +2855,8 @@ def serve_lm_gemma2(dev, card, flash, read_counts, reset_counts):
     tokens = torch.from_numpy(
         lm_batch(cfg, batch, prompt, seed=0, step=0)["tokens"]).to(dev)
     line, counts, cache, tok = run_lm(
-        "serve_lm_gemma2", model, cfg, tokens, new, flash, "flash_fwd_kernel",
-        read_counts, reset_counts)
+        "serve_lm_gemma2", model, cfg, tokens, new, flash,
+        "flash_wgmma_kernel", read_counts, reset_counts)
     windowed = sum(1 for w, cap, _ in line["flash_calls_per_prefill"]
                    if w < prompt)
     capped = sum(1 for _, cap, _ in line["flash_calls_per_prefill"]
@@ -2897,11 +2898,11 @@ def serve_lm_gemma2(dev, card, flash, read_counts, reset_counts):
     emit(line)
     del small
     lm_phase_end()
-    # the path's flash_fwd_kernel launches split by the call's window (one
-    # launch a call, checked in run_lm): sets (g) and (g') read these
+    # the path's flash_wgmma_kernel launches split by the call's window
+    # (one launch a call, checked in run_lm): sets (g) and (g') read these
     return dict(counts, **{
-        "flash_fwd_kernel:global": cfg.n_layers - windowed,
-        f"flash_fwd_kernel:window_{cfg.window}": windowed})
+        "flash_wgmma_kernel:global": cfg.n_layers - windowed,
+        f"flash_wgmma_kernel:window_{cfg.window}": windowed})
 
 
 def serve_lm_mistral_nemo(dev, card, flash, read_counts, reset_counts):
@@ -4865,8 +4866,8 @@ def main() -> int:
                     device_runs=3),
     ]
     # the rest of the LM family's prefills: (g) gemma-2 (2 requests x 8
-    # heads, 8192 tokens, head dim 256, bf16, causal, cap 50: the f32
-    # kernel's bf16 instance), (g') with its local layers' window of 4096,
+    # heads, 8192 tokens, head dim 256, bf16, causal, cap 50: wgmma's d-256
+    # instance), (g') with its local layers' window of 4096,
     # (h) Mistral-NeMo (4 x 32 heads, 4096 tokens, head dim 128: wgmma at
     # d 128; the plain version held on 32 of the 128 rows), (h') (a) with
     # cap 50 (wgmma's capped instance); (o) the query offset on both
@@ -4933,17 +4934,37 @@ def main() -> int:
                              f"instruction: {f32_row['sass']}")
     rows.append(f32_row)
     # a row for each new operand set: launches from the phase that serves
-    # its arch, gemma-2's split by the call's window; a capped wgmma
-    # instance and the offset run on no arch's path (gemma-2's head dim
-    # 256 goes to flash_attention.cu; prefills start at 0): 0 launches
+    # its arch, gemma-2's split by the call's window; wgmma's capped
+    # instance at d 64 and the offset run on no arch's path (gemma-2 is the
+    # capped arch, at head dim 256; prefills start at 0): 0 launches
     paths = {"g_gemma2_prefill": ("serve_lm_gemma2",
-                                  "flash_fwd_kernel:global"),
+                                  "flash_wgmma_kernel:global"),
              "g2_gemma2_prefill_window_4096": (
-                 "serve_lm_gemma2", "flash_fwd_kernel:window_4096"),
+                 "serve_lm_gemma2", "flash_wgmma_kernel:window_4096"),
              "h_nemo_prefill": ("serve_lm_mistral_nemo",
                                 "flash_wgmma_kernel")}
+    # what the build made of wgmma's d-256 instances (gemma-2's route):
+    # ptxas's registers and spills (when this process built the library;
+    # a spill fails the run), and the tensor-core instructions in their SASS
+    d256 = "flash_wgmma_kernelILi256E"
+    d256_build = [
+        {k: e[k] for k in ("entry", "registers", "smem_bytes",
+                           "spill_store_bytes", "spill_load_bytes")}
+        for e in report["kernels"] if d256 in e["entry"]]
+    spilled = [e for e in d256_build
+               if e["spill_store_bytes"] or e["spill_load_bytes"]]
+    if spilled:
+        raise AssertionError(f"wgmma's d-256 instances spill: {spilled}")
+    d256_sass = tensor_core_sass(report["library"], d256)
+    if len(d256_sass) != 2 or not all(
+            c.get("HGMMA", 0) > 0 for c in d256_sass.values()):
+        raise AssertionError("wgmma's d-256 instances: no HGMMA in their "
+                             f"SASS: {d256_sass}")
     for fs in lm_flash_sets:
         path, counter = paths.get(fs["label"], (None, fs["kernel"]))
+        built = ({"build": d256_build, "sass": d256_sass}
+                 if fs["label"] in ("g_gemma2_prefill",
+                                    "g2_gemma2_prefill_window_4096") else {})
         rows.append({
             "name": f"flash_attention_fwd_{fs['label']}",
             "counter": counter, "route": "cuda", "source": fs["source"],
@@ -4955,6 +4976,7 @@ def main() -> int:
                 "same_operands_in_f32")},
             **{k: fs[k] for k in ("library_against_plain",
                                   "sdpa_without_cap_ms") if k in fs},
+            **built,
         })
 
     emit({"phase": "kernels", "card": smi, "checked": [

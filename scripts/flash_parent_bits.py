@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Both flash kernels of this tree against another tree's, bit for bit,
-at ``chip_smoke.py``'s capless operand sets (a)–(f): a change that adds
-an option to a kernel must leave the outputs without it as they were.
+at ``chip_smoke.py``'s capless operand sets (a)–(f) and (h): a change that
+adds an option or an instance to a kernel must leave the outputs without
+it as they were.
 When both trees take the softcap and the query offset, its sets with
 them, (g)–(o), are held and timed too.
 
@@ -12,11 +13,16 @@ tree and of the other ``csrc`` directory (e.g. a ``git archive`` of the
 parent commit unpacked into the ignored ``_parent/``), four ``nvcc`` at
 once into ``build/flash_parent_bits/``, with the package's flags. Each
 operand set is made as ``chip_smoke.py``'s ``check_flash`` makes it (a
-generator on the card seeded with ``sq + d``) and goes to the kernel the
-wrapper would pick (bf16 at d 64 to wgmma, f32 to ``flash_attention.cu``;
-the bf16 sets cast to f32 as well), and both trees' kernels are timed
-in turns (other, this, this, other: CUDA events, 2 warm-ups, the mean of
-10 calls a turn). A source from before the query offset and the softcap
+generator on the card seeded with ``sq + d``) and goes to the same
+kernel in both trees: bf16 at d 64 and 128 to wgmma, f32 to
+``flash_attention.cu``, the bf16 sets cast to f32 as well, and bf16 at d
+256 ((g), (g')) to ``flash_attention.cu``'s bf16 instance, which both
+trees have (the wrapper now sends it to wgmma's d-256 instance, which a
+tree from before it lacks; ``scripts/flash256_probe.py`` times the two
+routes). Both trees' kernels are timed
+in turns (other, this, this, other, ``--rounds`` times over: CUDA events,
+2 warm-ups, the mean of 10 calls a turn); ``--sets`` keeps the named
+sets only. A source from before the query offset and the softcap
 (no ``q_offset`` in it) takes two arguments fewer; this tree's get no
 offset and no cap, and the sets (g)–(o) are left out. Prints one JSON line a set, the builds' registers and
 spills, and a summary; exits 1 when any output differs. Needs a CUDA
@@ -49,6 +55,7 @@ SETS = {
     "d_lm_prefill_32k": (9, 32768, 64, BF16, True, None),
     "e_lm_f32_check": (9, 256, 64, F32, True, None),
     "f_lm_prefill_f32": (36, 4096, 64, F32, True, None),
+    "h_nemo_prefill": (128, 4096, 128, BF16, True, None),
 }
 # its sets with a cap or an offset, in their own type only: bh, sq, sk, d,
 # dtype, causal, window, softcap, q_offset
@@ -121,6 +128,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True,
                     help="the other tree's src/repro_torch/kernels/csrc")
+    ap.add_argument("--sets", default="",
+                    help="comma-separated set names (default: all)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of turns (other, this, this, other)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_parent_bits: no CUDA device", file=sys.stderr)
@@ -148,6 +159,8 @@ def main() -> int:
             for name, (bh, s, d, dtype, causal, window) in SETS.items()}
     if all(f.new_abi for f in fns.values()):
         sets.update(CAPPED_SETS)
+    if args.sets:
+        sets = {k: v for k, v in sets.items() if k in args.sets.split(",")}
     for name, (bh, s, sk, d, dtype, causal, window, cap, off) in sets.items():
         g = torch.Generator(device=dev).manual_seed(s + d)
         q, k, v = (torch.randn((bh, n, d), generator=g, device=dev).to(dtype)
@@ -170,7 +183,7 @@ def main() -> int:
             diff = float((outs["this"].float() - outs["other"].float())
                          .abs().max())
             ms = {label: [] for label in trees}
-            for label in ("other", "this", "this", "other"):
+            for label in ("other", "this", "this", "other") * args.rounds:
                 out = outs[label]
                 ms[label].append(time_ms(
                     lambda f=fns[(label, src)], o=out: run(

@@ -8,7 +8,7 @@
 // -1e30 (not -inf), the padding keys >= sk take -inf, the f32 carry is
 // (acc, m, l), and the epilogue is acc / max(l, 1e-30) cast to the input
 // type. Takes float32 and bfloat16 operands at every head dim up to 256
-// (bf16 at d 64 and 128 goes to flash_attention_wgmma.cu instead).
+// (bf16 at d 64, 128 and 256 goes to flash_attention_wgmma.cu instead).
 //
 // Replaces the TPU kernel of the reference package's
 // kernels/flash_attention.py (`_kernel`: a grid (B*H, q blocks, kv blocks)

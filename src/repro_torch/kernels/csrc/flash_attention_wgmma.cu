@@ -1,6 +1,6 @@
 // flash_attention_wgmma: the bf16 flash-attention forward on Hopper's
 // tensor cores. out = softmax(mask(cap(q k^T / sqrt(d)))) v per
-// (batch*head) row, d in {64, 128}, with the masks (queries at row +
+// (batch*head) row, d in {64, 128, 256}, with the masks (queries at row +
 // q_offset), the softcap, the finite -1e30, the f32 carry (acc, m, l) and
 // the acc / max(l, 1e-30) epilogue of flash_attention.cu, which keeps
 // float32 operands and the other head dims.
@@ -67,6 +67,22 @@
 //   issue (two named barriers), so one's products run while the other's
 //   softmax does. No wgmma sits in a conditional path (the first tile is
 //   peeled off): ptxas would serialize them.
+// - Head dim 256 (gemma-2). The Q tile is 64 KB and a K or V stage of 64
+//   keys 32 KB, so the ring is two stages deep (Tile<256>: 193 KB of the
+//   227 KB a block may use). K and V get barriers of their own (SPLIT):
+//   they are read a tile apart (tile j's K with tile j-1's V), so a K
+//   stage is free once its S product is done, a tile before its V, and
+//   the producer asks for K(j) then V(j-1), the order the consumers read
+//   them: K(j) has a whole tile's products and softmax to land, where one
+//   barrier for both would leave it the softmax alone. (The three-stage
+//   rings of d 64 and 128 keep one barrier a stage: there a load has more
+//   than a tile's products to land, and the split ring timed 1-3 % slower
+//   at d 64 without the cap.) A consumer thread holds O (128 f32),
+//   S (BK / 2) and P's two halves (BK / 4 each) at once: 192 registers at
+//   BK = 64, of the 240 it takes. P.V takes one m64n256k16 register-A
+//   wgmma per 16 keys and half of P (its A fragment read once for all 256
+//   columns; two m64n128k16 on O's halves would read it twice and issue
+//   twice as many instructions).
 // - Softcap and query offset. The cap is a template flag (CAP): the
 //   capless instances keep their float arithmetic. The offset is taken at
 //   run time (its integer adds time level with the offset-free kernel at
@@ -95,13 +111,11 @@ constexpr int BQ = 128;         // q rows per block
 constexpr int WG_ROWS = 64;     // q rows per consumer warpgroup
 constexpr int CONSUMERS = 2;    // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);
-constexpr int STAGES = 3;       // K/V ring depth
 // registers a thread: the producer warpgroup gives back what the consumers
 // take (launch bounds give 168 each: 384 * 168 = 128 * 24 + 256 * 240)
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int LAUNCH_REGS = 168;
-static_assert(STAGES >= 2, "tile j's K and tile j-1's V are held at once");
 static_assert(THREADS * LAUNCH_REGS ==
                   128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS,
               "the register split must add up to the launch allocation");
@@ -111,16 +125,25 @@ constexpr int SW = 64;          // bf16 columns per 128-byte swizzled row
 constexpr int ROW_BYTES = 128;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 
 template <int D>
 struct Tile {
-  static constexpr int BK = D == 64 ? 128 : 64;  // keys per K/V tile
+  // keys per K/V tile, the depth of the ring, and whether K and V have
+  // barriers of their own (split) or one a stage for both (joint)
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int STAGES = D == 256 ? 2 : 3;
+  static constexpr bool SPLIT = D == 256;
   static constexpr int CB = D / SW;              // 64-column blocks
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;    // K or V, one stage
   static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
-  // barriers, then 1024 bytes of slack to align the base for the swizzle
-  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  // barriers (Q; full and empty a stage, twice if split), then 1024 bytes
+  // of slack to align the base for the swizzle
+  static constexpr int SMEM =
+      BAR_OFF + 8 * (1 + (SPLIT ? 4 : 2) * STAGES) + 1024;
+  static_assert(STAGES >= 2, "tile j's K and tile j-1's V are held at once");
+  static_assert(SMEM <= SMEM_MAX, "the tile does not fit a block");
 };
 
 // ------------------------------------------------------------ PTX helpers
@@ -135,6 +158,9 @@ __device__ __forceinline__ float ex2(float x) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define ACC32(d) ACC8(d, 0), ACC8(d, 8), ACC8(d, 16), ACC8(d, 24)
 #define ACC64(d) ACC32(d), ACC8(d, 32), ACC8(d, 40), ACC8(d, 48), ACC8(d, 56)
+#define ACC128(d)                                                        \
+  ACC64(d), ACC8(d, 64), ACC8(d, 72), ACC8(d, 80), ACC8(d, 88),          \
+      ACC8(d, 96), ACC8(d, 104), ACC8(d, 112), ACC8(d, 120)
 #define REGS32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "   \
   "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
@@ -145,6 +171,17 @@ __device__ __forceinline__ float ex2(float x) {
   "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
   "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
   "%57, %58, %59, %60, %61, %62, %63}"
+#define REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127}"
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N]; A and B from shared memory, both
 // K-major; scale_d = 0 overwrites D.
@@ -197,6 +234,17 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
       : ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REGS128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}"
+      : ACC128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -319,7 +367,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    int sq, int sk, int causal, int window, int q_off,
                    float scale, float cap, float scale_cap) {
   using T = Tile<D>;
-  constexpr int BK = T::BK, CB = T::CB;
+  constexpr int BK = T::BK, CB = T::CB, STAGES = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern follows address bits 4-9: tiles sit on 1024 bytes
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -327,8 +375,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t sk_addr = base + T::Q_BYTES;             // [STAGES][CB][BK][64]
   const uint32_t sv_addr = sk_addr + STAGES * T::KV_BYTES;
   const uint32_t q_full = base + T::BAR_OFF;
-  const uint32_t full = q_full + 8;                 // + 8 * stage
-  const uint32_t empty = full + 8 * STAGES;         // + 8 * stage
+  // each + 8 * stage: K's barriers, and V's (joint rings: K's)
+  const uint32_t full_k = q_full + 8, empty_k = full_k + 8 * STAGES;
+  const uint32_t full_v = T::SPLIT ? empty_k + 8 * STAGES : full_k;
+  const uint32_t empty_v = T::SPLIT ? full_v + 8 * STAGES : empty_k;
 
   const int nq = (sq + BQ - 1) / BQ;
   const int bh = blockIdx.x % bh_count;
@@ -345,11 +395,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
+  const int n = kt_end - kt_begin;  // key tiles, from kt_begin
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, CONSUMERS);
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, CONSUMERS);
+      if (T::SPLIT) {
+        mbar_init(full_v + 8 * s, 1);
+        mbar_init(empty_v + 8 * s, CONSUMERS);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -364,18 +419,31 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int c = 0; c < CB; ++c)
       tma_load_3d(sq_addr + c * BQ * ROW_BYTES, &tm_q, q_full, c * SW, q0,
                   bh);
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-      mbar_wait(empty + 8 * stage, phase ^ 1);  // passes on the first lap
-      mbar_expect_tx(full + 8 * stage, 2 * T::KV_BYTES);
-      for (int c = 0; c < CB; ++c) {
-        const uint32_t off = stage * T::KV_BYTES + c * BK * ROW_BYTES;
-        tma_load_3d(sk_addr + off, &tm_k, full + 8 * stage, c * SW, kt * BK,
-                    bh);
-        tma_load_3d(sv_addr + off, &tm_v, full + 8 * stage, c * SW, kt * BK,
-                    bh);
+    // one K or V tile into its stage, on that stage's full barrier
+    auto load = [&](uint32_t ring, const CUtensorMap* map, uint32_t full,
+                    int stage, int j) {
+      for (int c = 0; c < CB; ++c)
+        tma_load_3d(ring + stage * T::KV_BYTES + c * BK * ROW_BYTES, map,
+                    full + 8 * stage, c * SW, (kt_begin + j) * BK, bh);
+    };
+    // joint: K and V of tile j together; split: K of tile j, then V of
+    // tile j - 1, the order the consumers read them
+    int stage = 0, prev = 0;
+    uint32_t phase = 0, prev_phase = 0;
+    for (int j = 0; j <= n; ++j) {
+      if (j < n) {
+        mbar_wait(empty_k + 8 * stage, phase ^ 1);  // passes on the first lap
+        mbar_expect_tx(full_k + 8 * stage, (T::SPLIT ? 1 : 2) * T::KV_BYTES);
+        load(sk_addr, &tm_k, full_k, stage, j);
+        if (!T::SPLIT) load(sv_addr, &tm_v, full_k, stage, j);
       }
+      if (T::SPLIT && j > 0) {
+        mbar_wait(empty_v + 8 * prev, prev_phase ^ 1);
+        mbar_expect_tx(full_v + 8 * prev, T::KV_BYTES);
+        load(sv_addr, &tm_v, full_v, prev, j - 1);
+      }
+      prev = stage;
+      prev_phase = phase;
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
@@ -413,7 +481,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // one after its loop). Every block has at least one key tile (the
   // diagonal's under a causal mask), so the first tile is peeled off and
   // no wgmma sits in a conditional path: ptxas would serialize them.
-  const int n = kt_end - kt_begin;
   // the key tile's mask is applied only where it can mask something
   auto edge = [&](int k0) {
     return k0 + BK > sk || (causal && k0 + BK - 1 > qa0w) ||
@@ -423,7 +490,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   mbar_wait(q_full, 0);
   if (wg == 1) bar_arrive(SCHED_BAR, 2 * 128);
-  mbar_wait(full, 0);
+  mbar_wait(full_k, 0);
   bar_sync(SCHED_BAR + wg, 2 * 128);
   wgmma_fence();
   issue_s<D, BK>(s, qw_addr, sk_addr);
@@ -431,14 +498,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   bar_arrive(SCHED_BAR + 1 - wg, 2 * 128);
   wgmma_wait_all();
   fence_regs(s);
+  if (T::SPLIT) {
+    if (t == 0) mbar_arrive(empty_k);  // tile 0's K is done with
+  }
   softmax_tile<D, BK, CAP>(s, o, m, l, phi, plo, edge(kt_begin * BK),
                            kt_begin * BK, r0, c0, sk, causal, window, scale,
                            cap, scale_cap);
   int stage = 1, prev = 0;  // the ring position of tile 1, and of tile 0
-  uint32_t phase = 0;
+  uint32_t phase = 0, prev_phase = 0;
   for (int j = 1; j < n; ++j) {
     const int k0 = (kt_begin + j) * BK;
-    mbar_wait(full + 8 * stage, phase);
+    mbar_wait(full_k + 8 * stage, phase);
+    if (T::SPLIT) mbar_wait(full_v + 8 * prev, prev_phase);
     bar_sync(SCHED_BAR + wg, 2 * 128);
     wgmma_fence();
     issue_s<D, BK>(s, qw_addr, sk_addr + stage * T::KV_BYTES);
@@ -448,16 +519,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     fence_regs(s);
     fence_regs(o);
-    // tile j-1 is done with (its V was the last read of that stage)
-    if (t == 0) mbar_arrive(empty + 8 * prev);
+    if (t == 0) {
+      // tile j-1 is done with (its V was the last read of its stage), and
+      // with split rings tile j's K too
+      mbar_arrive(empty_v + 8 * prev);
+      if (T::SPLIT) mbar_arrive(empty_k + 8 * stage);
+    }
     softmax_tile<D, BK, CAP>(s, o, m, l, phi, plo, edge(k0), k0, r0, c0, sk,
                              causal, window, scale, cap, scale_cap);
     prev = stage;
+    prev_phase = phase;
     if (++stage == STAGES) {
       stage = 0;
       phase ^= 1;
     }
   }
+  if (T::SPLIT) mbar_wait(full_v + 8 * prev, prev_phase);
   wgmma_fence();  // the last tile's P.V
   issue_pv<D, BK>(o, phi, plo, sv_addr + prev * T::KV_BYTES);
   wgmma_commit();
@@ -549,7 +626,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // q, out: [bh, sq, d]; k, v: [bh, sk, d]; all contiguous bf16 on 16-byte
-// boundaries, d = 64 or 128. window: -1 = none, else >= 1. q_offset >= 0
+// boundaries, d = 64, 128 or 256. window: -1 = none, else >= 1. q_offset >= 0
 // with q_offset + sq < 2^31; softcap: 0 = none, else > 0.
 PIR_EXPORT int pir_flash_attention_wgmma(const void* q, const void* k,
                                          const void* v, void* out, int bh,
@@ -575,6 +652,10 @@ PIR_EXPORT int pir_flash_attention_wgmma(const void* q, const void* k,
   if (d == 128) {
     if (cap) PIR_WGMMA_LAUNCH(128, true);
     PIR_WGMMA_LAUNCH(128, false);
+  }
+  if (d == 256) {
+    if (cap) PIR_WGMMA_LAUNCH(256, true);
+    PIR_WGMMA_LAUNCH(256, false);
   }
 #undef PIR_WGMMA_LAUNCH
   return (int)cudaErrorInvalidValue;

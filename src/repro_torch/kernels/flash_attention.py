@@ -13,13 +13,15 @@ or bfloat16); the result comes back in q's type. Masked scores take the
 finite ``NEG_INF``.
 
 :func:`flash_attention_fwd` launches one of two hand-written CUDA kernels
-for tensors on the card, chosen by operand type (:func:`_kernel_for`):
-bfloat16 at a head dim of 64 or 128 goes to ``csrc/flash_attention_wgmma.cu``
-(Hopper's tensor cores: wgmma fed by TMA; P·V as hi + lo bf16 halves of P,
-so P keeps about 16 mantissa bits), everything else (float32, the
-other head dims up to 256) to ``csrc/flash_attention.cu`` (the TF32 tensor
-cores through ``mma.sync``, each f32 operand split into TF32 hi + lo
-halves and each product taken in three passes: f32 accuracy). Both take
+for tensors on the card, chosen by operand type and head dim
+(:func:`_kernel_for`): bfloat16 at a head dim of 64, 128 or 256 (gemma-2's)
+goes to ``csrc/flash_attention_wgmma.cu`` (Hopper's tensor cores: wgmma
+fed by TMA; P·V as hi + lo bf16 halves of P, so P keeps about 16 mantissa
+bits), everything else (float32 at every head dim, bfloat16 at the other
+head dims up to 256, which that kernel pads) to
+``csrc/flash_attention.cu`` (the TF32 tensor cores through ``mma.sync``,
+each f32 operand split into TF32 hi + lo halves and each product taken in
+three passes: f32 accuracy). Both take
 the softcap and the query offset. Both replace the reference package's
 TPU kernel ``kernels/flash_attention.py::_kernel`` (which has neither: the
 reference applies them in ``models/layers.py::_attn_core``); the
@@ -58,7 +60,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_plain", "attention_pairs",
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 # the two kernels by their CUDA names (what a profiler shows), with the
 # q rows of one block of each
 TF32_KERNEL, WGMMA_KERNEL = "flash_fwd_kernel", "flash_wgmma_kernel"
@@ -68,9 +70,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _kernel_for(dtype: torch.dtype, d: int) -> str:
     """Which kernel takes operands of this type and head dim: bfloat16 at
-    d = 64 or 128 goes to wgmma (``flash_attention_wgmma.cu``), everything
-    else to mma.sync in 3xTF32 (``flash_attention.cu``). A choice by
-    operand type, not a fallback: either kernel raises when it fails."""
+    d = 64, 128 or 256 goes to wgmma (``flash_attention_wgmma.cu``),
+    everything else (float32 at every d, bfloat16 at the other d) to
+    mma.sync in 3xTF32 (``flash_attention.cu``). A choice by operand type
+    and head dim, not a fallback: either kernel raises when it fails, and
+    an operand the wgmma kernel refuses (off 16 bytes) is refused."""
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return WGMMA_KERNEL
     return TF32_KERNEL

@@ -14,6 +14,7 @@ import torch
 from repro_torch.db import make_synthetic_store
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
+    _kernel_for,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -945,14 +946,14 @@ def test_a_failed_build_raises_and_never_falls_back(cuda_device, monkeypatch):
     assert flash_attention_fwd.launches == launches
 
 
-# the tensor-core kernel (bf16, d 64 / 128): lengths off the 128-row q and
-# 64/128-key tiles, Sq != Sk both ways, windows around the tile edges
+# the tensor-core kernel (bf16, d 64 / 128 / 256): lengths off the 128-row
+# q and 64/128-key tiles, Sq != Sk both ways, windows around the tile edges
 WGMMA_LENGTHS = [(1, 70), (70, 1), (129, 129), (300, 500), (500, 300),
                  (70, 129), (500, 500)]
 WGMMA_WINDOWS = [None, 1, 63, 64, 65, 127, 128, 129, 1024]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("sq,sk", WGMMA_LENGTHS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("window", WGMMA_WINDOWS)
@@ -976,7 +977,8 @@ def test_wgmma_flash_kernel_matches_plain(cuda_device, d, sq, sk, causal,
 # 16-row warps over 64 q rows, 64-key tiles, 32 at a head dim over 64):
 # lengths off the warp's 16 rows, the block's 64 and the key tiles, Sq !=
 # Sk both ways, windows around those edges; every head dim it pads to (16
-# to 256) in f32, and bf16 at the head dims the wgmma kernel does not take;
+# to 256) in f32, and bf16 at the head dims the wgmma kernel does not take
+# (192 pads to 256: the bf16 instance at that padded width);
 # then the exact operand shapes of chip_smoke.py's (c) (BERT4Rec) and (e)
 # (the LM's f32 check)
 F32_KERNEL_LENGTHS = [(1, 70), (15, 15), (16, 16), (17, 17), (70, 129),
@@ -984,7 +986,7 @@ F32_KERNEL_LENGTHS = [(1, 70), (15, 15), (16, 16), (17, 17), (70, 129),
 F32_KERNEL_WINDOWS = [None, 1, 16, 17, 65]
 F32_KERNEL_OPERANDS = ([(torch.float32, d)
                         for d in (16, 32, 48, 64, 96, 128, 256)]
-                       + [(torch.bfloat16, d) for d in (16, 32, 48, 96, 256)])
+                       + [(torch.bfloat16, d) for d in (16, 32, 48, 96, 192)])
 F32_KERNEL_CASES = [
     pytest.param(2, sq, sk, d, dtype, causal, window,
                  id=f"{str(dtype)[6:]}-d{d}-{sq}x{sk}-"
@@ -1075,6 +1077,42 @@ def test_the_wgmma_kernel_refuses_operands_off_16_bytes(cuda_device):
     assert flash_attention_fwd.launches == launches
 
 
+def test_the_wgmma_kernel_refuses_gemma2_operands_off_16_bytes(cuda_device):
+    # bf16 at d 256 is wgmma's too: an unaligned view raises and launches
+    # nothing, on either kernel (it does not go to flash_attention.cu)
+    q, k, v = _flash_case(2, 128, 128, 256, torch.bfloat16, cuda_device)
+    flat = torch.empty(k.numel() + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:1 + k.numel()].view(k.shape)
+    shifted.copy_(k)
+    before = dict(flash_attention_fwd.kernel_launches)
+    launches = flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(q, shifted, v, causal=True, softcap=50.0)
+    assert flash_attention_fwd.launches == launches
+    assert flash_attention_fwd.kernel_launches == before
+
+
+@pytest.mark.parametrize("window", [None, 4096], ids=["global", "window_4096"])
+def test_gemma2_prefill_operands_on_the_wgmma_kernel(cuda_device, window):
+    """chip_smoke.py's (g) and (g') cut to 2 of their 16 rows: one global
+    layer's call and one windowed, 8192 tokens at head dim 256, bf16,
+    causal, cap 50, on the wgmma kernel within the bf16 tolerance."""
+    q, k, v = _flash_case(2, 8192, 8192, 256, torch.bfloat16, cuda_device,
+                          seed=8192 + 256)
+    kw = dict(causal=True, window=window, softcap=50.0)
+    before = dict(flash_attention_fwd.kernel_launches)
+    got = flash_attention_fwd(q, k, v, **kw)
+    after = flash_attention_fwd.kernel_launches
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == "flash_wgmma_kernel") for n in after}
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 8192, 256)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
+
+
 def test_gqa_attention_at_the_lms_head_dim_in_bf16(cuda_device):
     """gqa_attention at head dim 64 in bf16 (9 query / 3 kv heads) goes
     through the tensor-core kernel and agrees with the CPU plain path,
@@ -1157,8 +1195,12 @@ def test_flash_kernels_with_cap_and_offset_match_plain(
                           seed=sq + 7 * sk + d + off)
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
     launches = flash_attention_fwd.launches
+    before = dict(flash_attention_fwd.kernel_launches)
     got = flash_attention_fwd(q, k, v, **kw)
     assert flash_attention_fwd.launches == launches + 1
+    after = flash_attention_fwd.kernel_launches
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == _kernel_for(dtype, d)) for n in after}
     want = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (bh, sq, d)

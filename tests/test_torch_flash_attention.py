@@ -120,12 +120,16 @@ def test_wrapper_on_the_cpu_takes_the_plain_version_and_counts_nothing():
     (torch.float32, 32, "flash_fwd_kernel"),
     (torch.bfloat16, 8, "flash_fwd_kernel"),
     (torch.bfloat16, 48, "flash_fwd_kernel"),
-    (torch.bfloat16, 256, "flash_fwd_kernel"),
+    (torch.bfloat16, 256, "flash_wgmma_kernel"),   # gemma-2's heads
+    (torch.bfloat16, 192, "flash_fwd_kernel"),
+    (torch.bfloat16, 255, "flash_fwd_kernel"),
+    (torch.float32, 256, "flash_fwd_kernel"),
 ])
-def test_bf16_at_head_dims_64_and_128_goes_to_the_tensor_cores(dtype, d,
-                                                               kernel):
-    # a choice by operand type: the f32 BERT4Rec path and the other head
-    # dims stay on the f32 kernel
+def test_bf16_at_head_dims_64_128_and_256_goes_to_the_tensor_cores(
+        dtype, d, kernel):
+    # a choice by operand type and head dim: the f32 paths (BERT4Rec, the
+    # f32 checks) at every head dim, and bf16 at the head dims that the
+    # f32 kernel pads, stay on the f32 kernel
     assert _kernel_for(dtype, d) == kernel
 
 
@@ -236,6 +240,66 @@ def test_three_tf32_passes_hold_the_f32_tolerance_where_one_does_not(
         got.numpy() - want).max()
 
 
+# ------------------------------------- the wgmma kernel's P·V precision
+# csrc/flash_attention_wgmma.cu takes bf16 operands: Q K^T is exact bf16
+# products summed in f32, the softmax runs in f32, and P·V runs on the
+# bf16 tensor cores as hi·V + lo·V with hi = bf16(p) and lo = bf16(p - hi)
+# (every bf16 x bf16 product exact in f32); the output is rounded once to
+# bf16. Here in float32 matmuls of bf16 values, with the whole row's max in
+# place of the online one (the rescaling is exact up to f32 noise).
+def _attention_in_wgmma(q, k, v, causal, window, cap, split):
+    d = q.shape[-1]
+    s = q @ k.transpose(1, 2) / math.sqrt(d)
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    qpos = torch.arange(q.shape[1])[:, None]
+    kpos = torch.arange(k.shape[1])[None, :]
+    ok = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = s.masked_fill(~ok, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    o = hi @ v
+    if split:
+        o = o + (p - hi).bfloat16().float() @ v
+    return (o / p.sum(-1, keepdim=True)).bfloat16().float()
+
+
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, None, 50.0),   # gemma-2's global layers
+    (True, 1024, 50.0),   # its local layers' window, cut with the length
+    (True, None, 0.0),    # capless: the reference's oracle itself
+])
+def test_p_split_into_bf16_halves_holds_the_bf16_tolerance_at_head_dim_256(
+        causal, window, cap):
+    """At gemma-2's head dim (2048 tokens, bf16-valued operands) the
+    kernel's hi + lo split of P holds the card's bf16 tolerance (rtol 8e-3,
+    atol 1e-3: one rounding of the output) against the reference in f32:
+    ``flash_attention_ref``, or with a cap its layer's ``gqa_attention``,
+    which caps the scaled scores as ``_attn_core`` does. P rounded once to
+    bf16, as SDPA and flex_attention take it, misses it."""
+    rng = np.random.default_rng(2048 + 256)
+    arrays = [torch.from_numpy(rng.standard_normal((1, 2048, 256))
+                               .astype(np.float32)).bfloat16().float().numpy()
+              for _ in range(3)]
+    if cap:
+        q, k, v = (jnp.asarray(a.transpose(1, 0, 2))[None] for a in arrays)
+        want = RL.gqa_attention(q, k, v, causal=causal, window=window,
+                                attn_softcap=cap)
+        want = np.asarray(want)[0].transpose(1, 0, 2)
+    else:
+        want = np.asarray(jref.flash_attention_ref(
+            *_jax(*arrays), causal=causal, window=window))
+    tol = dict(rtol=8e-3, atol=1e-3)
+    got = _attention_in_wgmma(*_torch(*arrays), causal, window, cap, True)
+    np.testing.assert_allclose(got.numpy(), want, **tol)
+    once = _attention_in_wgmma(*_torch(*arrays), causal, window, cap, False)
+    assert not np.allclose(once.numpy(), want, **tol)
+
+
 def test_the_tf32_rounding_is_to_nearest_ties_away():
     # 1 + 2^-11 is half a TF32 ulp above 1: ties away, up to 1 + 2^-10;
     # just below the half rounds down; hi + lo misses x by less than 2^-22 x
@@ -262,6 +326,7 @@ CAP_CASES = [
     (1, 40, 30, 8, True, 5, 20.0, 3),          # Sq + offset > Sk: rows the mask empties
     (2, 33, 57, 16, False, None, 0.0, 9),      # non-causal: the offset moves nothing
     (1, 20, 20, 16, False, 6, 10.0, 4),        # window without causal
+    (1, 96, 96, 256, True, 40, 50.0, 0),       # gemma-2's head dim, cap, window
 ]
 
 

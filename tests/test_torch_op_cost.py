@@ -25,7 +25,7 @@ from repro_torch.dist import sharding as S
 from repro_torch.kernels import fused, scatter, xor_fold
 from repro_torch.kernels.gather_xor import gather_xor, indices_from_mask
 from repro_torch.kernels.flash_attention import (
-    attention_pairs, flash_attention_fwd, flash_attention_plain,
+    attention_pairs, flash_attention_fwd, flash_attention_plain, flash_cost,
 )
 from repro_torch.kernels.parity_matmul import (
     parity_matmul, parity_matmul_packed, parity_matmul_packed_plain,
@@ -257,6 +257,23 @@ def test_attention_backward_runs_on_meta():
     assert cost.kernels == {"flash_fwd_kernel": 1}
     # the plain backward's products are counted beside the kernel's formula
     assert cost.flops > 4 * 2 * 4 * attention_pairs(16, 16, True, None) * 8
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_gemma2_heads_in_bf16_count_as_the_wgmma_kernel(window):
+    """gemma-2's attention layout (8 query / 4 kv heads, head dim 256) in
+    bf16 is counted as one launch of the wgmma kernel, at flash_cost's
+    flops (K/V broadcast over the query groups first), with its softcap."""
+    from repro_torch.models.layers import gqa_attention
+
+    b, s, d = 2, 64, 256
+    q = torch.empty((b, s, 8, d), dtype=torch.bfloat16, device=META)
+    kv = torch.empty((b, s, 4, d), dtype=torch.bfloat16, device=META)
+    cost = count_cost(partial(gqa_attention, window=window,
+                              attn_softcap=50.0), q, kv, kv)
+    assert cost.kernels == {"flash_wgmma_kernel": 1}
+    flops, _ = flash_cost(b * 8, s, s, d, 2, True, window)
+    assert cost.flops == flops
 
 
 def _refusals():
