@@ -47,6 +47,7 @@ the thread-safe concurrent front over it is
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -74,6 +75,7 @@ from repro_torch.serve.cache import QueryCache, block_pre_ready, scheme_signatur
 from repro_torch.serve.router import SchemeRouter
 from repro_torch.serve.scheduler import BatchScheduler, Request
 from repro_torch.serve.sharded import ServerStats, ShardedBackend
+from repro_torch.serve.spans import span
 
 __all__ = ["ServerStats", "PlannedBatch", "ServingPipeline", "PIRServingEngine"]
 
@@ -92,7 +94,8 @@ class PlannedBatch:
     the store it was planned on. ``miss_lists`` holds the per-miss-request
     index lists that went to the wire and ``partial`` each miss request's
     per-index cached answers (None = fresh) on a jagged batch; both are
-    None on the single-index path."""
+    None on the single-index path. ``seq`` is the batch's number, which
+    its profiler ranges carry (``serve/spans.py``)."""
 
     batch: List[Request]
     results: List[Optional[Tuple[Request, np.ndarray]]]
@@ -106,6 +109,7 @@ class PlannedBatch:
     store_version: int = 0
     miss_lists: Optional[List[List[int]]] = None
     partial: Optional[List[List[Optional[np.ndarray]]]] = None
+    seq: int = -1
 
 
 class ServingPipeline:
@@ -206,6 +210,15 @@ class ServingPipeline:
             "unserviceable": 0,
             "ingests": 0, "records_ingested": 0,
         }
+        # counters of the serving stages beyond the reference's key set:
+        # the seconds lookups waited from submit to their batch's cut, and
+        # how many were cut (accumulated in take_batch, on the scheduler's
+        # clock)
+        self.stage_metrics = {"queue_wait_s": 0.0, "queue_waited": 0}
+        # Request.seq -> when the front took it in, on the scheduler's
+        # clock (a request without one waited from its admission)
+        self._submitted: Dict[int, float] = {}
+        self._batch_seq = itertools.count()
 
     # ------------------------------------------------------------ clients
     def budget(self, client: str) -> PrivacyBudget:
@@ -232,8 +245,12 @@ class ServingPipeline:
         b = self.budget(client)
         return (b.epsilon_limit, b.delta_limit, b.spent_epsilon, b.spent_delta)
 
-    def submit_request(self, client: str, index: int) -> Optional[Request]:
+    def submit_request(
+        self, client: str, index: int, *, t_submit: Optional[float] = None
+    ) -> Optional[Request]:
         """Queue one query; None if the client's privacy budget refuses.
+        ``t_submit`` (the scheduler's clock) is when a front took the query
+        in, ahead of admission: its queue wait is counted from there.
 
         Spending happens here, at admission — before the cache is ever
         consulted — so a cache hit is priced exactly like a miss. The
@@ -261,16 +278,22 @@ class ServingPipeline:
             self.metrics["refused"] += 1
             return None
         self.budget(client).spend(eps, delta)
-        return self.scheduler.submit(client, index)
+        return self._stamped(self.scheduler.submit(client, index), t_submit)
+
+    def _stamped(self, req: Request, t_submit: Optional[float]) -> Request:
+        if t_submit is not None:
+            self._submitted[req.seq] = t_submit
+        return req
 
     def submit(self, client: str, index: int) -> bool:
         """Queue one query; False if the client's privacy budget refuses."""
         return self.submit_request(client, index) is not None
 
     def submit_request_many(
-        self, client: str, indices
+        self, client: str, indices, *, t_submit: Optional[float] = None
     ) -> Optional[Request]:
-        """Queue one jagged multi-index request; None if refused.
+        """Queue one jagged multi-index request; None if refused
+        (``t_submit`` as for :meth:`submit_request`).
 
         Admission charges the Composition-Lemma price up front: a k-index
         request is k sequential lookups, so it spends k·(ε, δ) — before
@@ -288,7 +311,8 @@ class ServingPipeline:
             self.metrics["refused"] += 1
             return None
         self.budget(client).spend(k * eps, k * delta)
-        return self.scheduler.submit_many(client, indices)
+        return self._stamped(self.scheduler.submit_many(client, indices),
+                             t_submit)
 
     def submit_many(self, client: str, indices) -> bool:
         """Queue one multi-index request; False if the budget refuses."""
@@ -383,13 +407,22 @@ class ServingPipeline:
         pre-resolve the batch's
         :class:`~repro_torch.kernels.backend.ExecutionPlan`. Client and
         planning work only — the server compute happens in
-        :meth:`execute_planned`."""
+        :meth:`execute_planned`. The batch takes the next number, which
+        its ranges carry (``plan#k`` here)."""
         if not batch:
             return None
-        if any(r.indices for r in batch):
-            return self._plan_requests_multi(batch)
+        seq = next(self._batch_seq)
+        with span("plan", seq):
+            planned = (self._plan_requests_multi(batch)
+                       if any(r.indices for r in batch)
+                       else self._plan_requests_single(batch))
+        planned.seq = seq
+        return planned
+
+    def _plan_requests_single(self, batch: List[Request]) -> PlannedBatch:
+        """The single-index half of :meth:`plan_requests`."""
         results: List[Optional[Tuple[Request, np.ndarray]]] = [None] * len(batch)
-        with self._phase_lock:
+        with self._phase_lock, span("plan.cache"):
             # pin the batch's snapshot under the lock: routing (n),
             # execution, reconstruction and cache stamps all read the
             # pinned store, never a newer head
@@ -430,10 +463,13 @@ class ServingPipeline:
                 )
                 # the generator is the pipeline's one stream of client
                 # randomness: draws are serialised under the lock
-                routed = self.router.plan(self._gen, store.n, q_idx, pre=pre)
+                with span("plan.route"):
+                    routed = self.router.plan(self._gen, store.n, q_idx,
+                                              pre=pre)
             if self.live is not None:
                 routed.store_version = ver
-            exec_plan = self.backend.prepare(routed, scheme=self.staged)
+            with span("plan.prepare"):
+                exec_plan = self.backend.prepare(routed, scheme=self.staged)
             plan_s = clock() - t0
         return PlannedBatch(
             batch=list(batch), results=results, misses=misses,
@@ -457,7 +493,7 @@ class ServingPipeline:
         miss_pos: List[int] = []
         miss_lists: List[List[int]] = []
         partial: List[List[Optional[np.ndarray]]] = []
-        with self._phase_lock:
+        with self._phase_lock, span("plan.cache"):
             store, ver = self.store, self.store_version  # pin (see above)
             for i, r in enumerate(batch):
                 idxs = list(r.index_list)
@@ -494,11 +530,13 @@ class ServingPipeline:
                     self.cache.take_pre(padded)
                     if self.cache is not None else None
                 )
-                routed = self.router.plan_many(
-                    self._gen, store.n, miss_lists, pre=pre)
+                with span("plan.route"):
+                    routed = self.router.plan_many(
+                        self._gen, store.n, miss_lists, pre=pre)
             if self.live is not None:
                 routed.queries.store_version = ver  # the flat wire carries it
-            exec_plan = self.backend.prepare(routed, scheme=self.staged)
+            with span("plan.prepare"):
+                exec_plan = self.backend.prepare(routed, scheme=self.staged)
             plan_s = clock() - t0
         return PlannedBatch(
             batch=list(batch), results=results, misses=misses,
@@ -545,50 +583,54 @@ class ServingPipeline:
             t1 = clock()
             responses = self.backend.answer_batch(
                 routed, plan=planned.exec_plan, scheme=self.staged,
-                store=planned.store,
+                store=planned.store, seq=planned.seq,
             )
-            flat_out = self.router.finalize(routed, responses)
-            synchronize(self.device)
+            with span("finalize"):
+                flat_out = self.router.finalize(routed, responses)
+            with span("execute.sync"):
+                synchronize(self.device)
             dt = planned.plan_s + (clock() - t1)
 
-            nbytes = -(-planned.store.record_bits // 8)
-            raw_all = packing.unpack_bytes_np(
-                packing.words_to_numpy(flat_out), nbytes
-            )
-            k_max = routed.k_max
-            flat_total = sum(len(lst) for lst in planned.miss_lists)
-            cols = self._query_cols(routed, int(routed.payload.shape[1]))
-            with self._phase_lock:
-                self.scheduler.observe_service(planned.padded, dt)
-                self.metrics["batches"] += 1
-                self.metrics["padded"] += planned.padded - flat_total
-                costs = self.staged.costs(planned.store.n)
-                self.metrics["records_touched"] += (
-                    costs["C_p"] / 2.0 * flat_total)
-                self.metrics["blocks_sent"] += costs["C_m"] * flat_total
-                for j, r in enumerate(planned.misses):
-                    lst = planned.miss_lists[j]
-                    fresh = raw_all[j * k_max: j * k_max + len(lst)]
-                    rows = list(planned.partial[j])
-                    f = 0
-                    for pos in range(len(rows)):
-                        if rows[pos] is not None:
-                            continue
-                        answer = np.array(fresh[f])
-                        rows[pos] = answer
-                        if self.cache is not None:
-                            # request j's f-th wire index sits at flat
-                            # column j·k_max + f (the padded layout)
-                            self.cache.insert(
-                                r.client, lst[f], answer=answer,
-                                query_cols=(
-                                    None if cols is None
-                                    else cols[:, j * k_max + f]
-                                ),
-                                version=planned.store_version,
-                            )
-                        f += 1
-                    results[planned.miss_pos[j]] = (r, self._assemble(r, rows))
+            with span("execute.host"):
+                nbytes = -(-planned.store.record_bits // 8)
+                raw_all = packing.unpack_bytes_np(
+                    packing.words_to_numpy(flat_out), nbytes
+                )
+                k_max = routed.k_max
+                flat_total = sum(len(lst) for lst in planned.miss_lists)
+                cols = self._query_cols(routed, int(routed.payload.shape[1]))
+                with self._phase_lock:
+                    self.scheduler.observe_service(planned.padded, dt)
+                    self.metrics["batches"] += 1
+                    self.metrics["padded"] += planned.padded - flat_total
+                    costs = self.staged.costs(planned.store.n)
+                    self.metrics["records_touched"] += (
+                        costs["C_p"] / 2.0 * flat_total)
+                    self.metrics["blocks_sent"] += costs["C_m"] * flat_total
+                    for j, r in enumerate(planned.misses):
+                        lst = planned.miss_lists[j]
+                        fresh = raw_all[j * k_max: j * k_max + len(lst)]
+                        rows = list(planned.partial[j])
+                        f = 0
+                        for pos in range(len(rows)):
+                            if rows[pos] is not None:
+                                continue
+                            answer = np.array(fresh[f])
+                            rows[pos] = answer
+                            if self.cache is not None:
+                                # request j's f-th wire index sits at flat
+                                # column j·k_max + f (the padded layout)
+                                self.cache.insert(
+                                    r.client, lst[f], answer=answer,
+                                    query_cols=(
+                                        None if cols is None
+                                        else cols[:, j * k_max + f]
+                                    ),
+                                    version=planned.store_version,
+                                )
+                            f += 1
+                        results[planned.miss_pos[j]] = (
+                            r, self._assemble(r, rows))
         return results  # type: ignore[return-value]
 
     def execute_planned(
@@ -597,11 +639,19 @@ class ServingPipeline:
         """Execute a planned batch's misses on the backend and finalize:
         [(Request, record bytes)] in the planned batch's order, every
         fresh answer memoized. The device compute runs outside the
-        pipeline's phase lock."""
+        pipeline's phase lock. Runs in the range ``execute#k`` of the
+        batch's number."""
         if planned is None:
             return []
-        if planned.miss_lists is not None:  # a jagged multi-index batch
-            return self._execute_planned_multi(planned)
+        with span("execute", planned.seq):
+            if planned.miss_lists is not None:  # a jagged multi-index batch
+                return self._execute_planned_multi(planned)
+            return self._execute_planned_single(planned)
+
+    def _execute_planned_single(
+        self, planned: PlannedBatch
+    ) -> List[Tuple[Request, np.ndarray]]:
+        """The single-index half of :meth:`execute_planned`."""
         results = planned.results
         if planned.routed is not None:
             misses, miss_pos = planned.misses, planned.miss_pos
@@ -617,32 +667,36 @@ class ServingPipeline:
             t1 = clock()
             responses = self.backend.answer_batch(
                 routed, plan=planned.exec_plan, scheme=self.staged,
-                store=planned.store,
+                store=planned.store, seq=planned.seq,
             )
-            out = self.router.finalize(routed, responses)
-            synchronize(self.device)
+            with span("finalize"):
+                out = self.router.finalize(routed, responses)
+            with span("execute.sync"):
+                synchronize(self.device)
             dt = planned.plan_s + (clock() - t1)
 
-            nbytes = -(-planned.store.record_bits // 8)
-            raw = packing.unpack_bytes_np(
-                packing.words_to_numpy(out[:b]), nbytes)
-            cols = self._query_cols(routed, b)
-            with self._phase_lock:
-                self.scheduler.observe_service(planned.padded, dt)
-                self.metrics["batches"] += 1
-                self.metrics["padded"] += planned.padded - b
-                costs = self.staged.costs(planned.store.n)
-                self.metrics["records_touched"] += costs["C_p"] / 2.0 * b
-                self.metrics["blocks_sent"] += costs["C_m"] * b
-                for j, r in enumerate(misses):
-                    answer = np.array(raw[j])
-                    results[miss_pos[j]] = (r, answer)
-                    if self.cache is not None:
-                        self.cache.insert(
-                            r.client, r.index, answer=answer,
-                            query_cols=None if cols is None else cols[:, j],
-                            version=planned.store_version,
-                        )
+            with span("execute.host"):
+                nbytes = -(-planned.store.record_bits // 8)
+                raw = packing.unpack_bytes_np(
+                    packing.words_to_numpy(out[:b]), nbytes)
+                cols = self._query_cols(routed, b)
+                with self._phase_lock:
+                    self.scheduler.observe_service(planned.padded, dt)
+                    self.metrics["batches"] += 1
+                    self.metrics["padded"] += planned.padded - b
+                    costs = self.staged.costs(planned.store.n)
+                    self.metrics["records_touched"] += costs["C_p"] / 2.0 * b
+                    self.metrics["blocks_sent"] += costs["C_m"] * b
+                    for j, r in enumerate(misses):
+                        answer = np.array(raw[j])
+                        results[miss_pos[j]] = (r, answer)
+                        if self.cache is not None:
+                            self.cache.insert(
+                                r.client, r.index, answer=answer,
+                                query_cols=(None if cols is None
+                                            else cols[:, j]),
+                                version=planned.store_version,
+                            )
         return results  # type: ignore[return-value]
 
     def serve_requests(
@@ -658,12 +712,19 @@ class ServingPipeline:
 
     def take_batch(self) -> List[Request]:
         """Pop the next batch off the scheduler (≤ max_batch; truncation
-        leaves the rest queued)."""
+        leaves the rest queued), and count each request's wait from its
+        submit (else its admission) to this cut into ``stage_metrics``."""
         if not len(self.scheduler):
             return []
         batch = self.scheduler.next_batch()
         if len(self.scheduler):
             self.metrics["truncated"] += 1
+        now = self.scheduler.clock()
+        waited = 0.0
+        for r in batch:
+            waited += now - self._submitted.pop(r.seq, r.t_enqueue)
+        self.stage_metrics["queue_wait_s"] += waited
+        self.stage_metrics["queue_waited"] += len(batch)
         return batch
 
     def prefill_cache(self, bucket: Optional[int] = None) -> int:

@@ -92,6 +92,13 @@ front of it (DESIGN.md §Async front):
   its wait for in-flight block-policy submitters to settle is bounded by
   ``drain_timeout_s`` on the *scheduler's* injected clock, so fake-clock
   tests control it like every other timeout in the stack.
+* **Queue wait and ranges**: ``submit`` stamps each query on the
+  scheduler's clock before the ingest queue; the pipeline counts its wait
+  to the batch cut (``ServingPipeline.stage_metrics``, folded into
+  :attr:`metrics`). With ``serve/spans.py`` on, every stage of the flush
+  worker's loop (the cut, plan, the hand-off to the executor, settle,
+  resolve, the idle jobs, the wait as ``front.idle`` or ``front.hold``),
+  each submit and each admission run in a profiler range.
 """
 
 from __future__ import annotations
@@ -107,6 +114,7 @@ import torch
 
 from repro_torch.serve.engine import PlannedBatch, ServingPipeline
 from repro_torch.serve.scheduler import Request
+from repro_torch.serve.spans import span
 
 __all__ = ["BackpressureError", "AsyncFrontend"]
 
@@ -234,13 +242,18 @@ class AsyncFrontend:
 
     def _enqueue(self, client: str, index) -> "Future[np.ndarray]":
         """Shared ingest path: ``index`` is an int (single query) or a
-        tuple of ints (multi-index request)."""
+        tuple of ints (multi-index request). Runs in the range
+        ``front.submit`` on the caller's thread."""
+        with span("front.submit"):
+            return self._enqueue_one(client, index)
+
+    def _enqueue_one(self, client: str, index) -> "Future[np.ndarray]":
         if self._closed:
             raise RuntimeError("frontend is closed to new submits")
         if not self._threads:
             self.start()
         fut: "Future[np.ndarray]" = Future()
-        item = (client, index, fut)
+        item = (client, index, fut, self.pipeline.scheduler.clock())
         with self._cv:
             self._unadmitted += 1
             self._counters["accepted"] += 1
@@ -387,6 +400,7 @@ class AsyncFrontend:
         out = dict(self.pipeline.metrics)
         with self._cv:
             out.update(self._counters)
+            out.update(self.pipeline.stage_metrics)
         if self.pipeline.cache is not None:
             out.update(
                 {f"cache_{k}": v
@@ -435,14 +449,16 @@ class AsyncFrontend:
                     break
                 items.append(nxt)
             refusals: List[Future] = []
-            with self._cv:
+            with self._cv, span("front.admit"):
                 self._unadmitted -= len(items)
-                for client, index, fut in items:
+                for client, index, fut, t_submit in items:
                     if fut.set_running_or_notify_cancel():
                         req = (
-                            self.pipeline.submit_request_many(client, index)
+                            self.pipeline.submit_request_many(
+                                client, index, t_submit=t_submit)
                             if isinstance(index, tuple)
-                            else self.pipeline.submit_request(client, index)
+                            else self.pipeline.submit_request(
+                                client, index, t_submit=t_submit)
                         )
                         if req is None:
                             refusals.append(fut)
@@ -495,10 +511,11 @@ class AsyncFrontend:
 
     def _flush_loop(self) -> None:
         # double-buffer state: the one batch whose execute stage is in
-        # flight on the executor thread, with its original requests
-        inflight: Optional[Tuple[List[Request], Future]] = None
+        # flight on the executor thread, with its original requests and
+        # its number
+        inflight: Optional[Tuple[List[Request], Future, int]] = None
         while True:
-            with self._cv:
+            with span("front.cut"), self._cv:
                 if self._stop:
                     break
                 cut = self._should_cut()
@@ -527,14 +544,16 @@ class AsyncFrontend:
                 if inflight is not None:
                     self._finish(*inflight)
                     inflight = None
-                ready = self._plan_ready()
-                try:
-                    inflight = (
-                        batch,
-                        executor.submit(self._execute, planned, ready),
-                    )
-                except RuntimeError as exc:  # executor already shut down
-                    self._fail(batch, exc)
+                with span("front.dispatch"):
+                    ready = self._plan_ready()
+                    try:
+                        inflight = (
+                            batch,
+                            executor.submit(self._execute, planned, ready),
+                            planned.seq,
+                        )
+                    except RuntimeError as exc:  # executor already shut down
+                        self._fail(batch, exc)
                 continue
             # no fresh cut: settle the in-flight batch before anything else
             if inflight is not None:
@@ -559,7 +578,8 @@ class AsyncFrontend:
                     self._applying += 1
                 applied = 0
                 try:
-                    applied = self.pipeline.ingest_step()
+                    with span("idle.ingest"):
+                        applied = self.pipeline.ingest_step()
                 finally:
                     with self._cv:
                         self._applying -= 1
@@ -575,14 +595,18 @@ class AsyncFrontend:
             # depth, oracle-checked, never blocking a flush (DESIGN.md
             # §13). compact_log_depth=None (default) disables it.
             if idle and self.compact_log_depth is not None:
-                if self.pipeline.compact_step(
-                    min_log_depth=self.compact_log_depth
-                ):
+                with span("idle.compact"):
+                    compacted = self.pipeline.compact_step(
+                        min_log_depth=self.compact_log_depth
+                    )
+                if compacted:
                     with self._cv:
                         self._counters["compacted"] += 1
                     continue
             if self.prefill and self.pipeline.cache is not None and idle:
-                if self.pipeline.prefill_cache():
+                with span("idle.prefill"):
+                    banked = self.pipeline.prefill_cache()
+                if banked:
                     with self._cv:
                         self._counters["prefilled"] += 1
                     continue
@@ -591,7 +615,9 @@ class AsyncFrontend:
             # measured winner here, never on the serving path (DESIGN.md
             # §Execution backends)
             if self.autotune and idle:
-                if self.pipeline.autotune_step():
+                with span("idle.autotune"):
+                    tuned = self.pipeline.autotune_step()
+                if tuned:
                     with self._cv:
                         self._counters["autotuned"] += 1
                     continue
@@ -599,7 +625,12 @@ class AsyncFrontend:
                 if self._stop:
                     break
                 if not self._should_cut():
-                    self._cv.wait(timeout)
+                    # idle: nothing queued, being admitted or in flight (a
+                    # batch in flight was settled above); hold: lookups
+                    # queued whose deadline or target has not come
+                    held = len(self.pipeline.scheduler) or self._unadmitted
+                    with span("front.hold" if held else "front.idle"):
+                        self._cv.wait(timeout)
         if inflight is not None:  # stop requested with a batch in flight
             self._finish(*inflight)
 
@@ -645,15 +676,16 @@ class AsyncFrontend:
             return
         self._resolve(results)
 
-    def _finish(self, batch: List[Request], fut: Future) -> None:
-        """Settle one double-buffered batch: wait for its execute stage
-        and resolve (or fail) its futures."""
+    def _finish(self, batch: List[Request], fut: Future, seq: int) -> None:
+        """Settle one double-buffered batch (number ``seq``): wait for its
+        execute stage and resolve (or fail) its futures."""
         try:
-            results = fut.result()
+            with span("front.settle", seq):
+                results = fut.result()
         except Exception as exc:
             self._fail(batch, exc)
             return
-        self._resolve(results)
+        self._resolve(results, seq)
 
     def _fail(self, batch: List[Request], exc: BaseException) -> None:
         with self._cv:
@@ -668,18 +700,20 @@ class AsyncFrontend:
             self._cv.notify_all()
 
     def _resolve(
-        self, results: List[Tuple[Request, np.ndarray]]
+        self, results: List[Tuple[Request, np.ndarray]],
+        seq: Optional[int] = None,
     ) -> None:
-        with self._cv:
-            paired: List[Tuple[Optional[Future], np.ndarray]] = [
-                (self._pending.pop(r.seq, None), answer)
-                for r, answer in results
-            ]
-            self._counters["served"] += len(results)
-            self._resolving += len(paired)
-        for fut, answer in paired:
-            if fut is not None and not fut.done():
-                fut.set_result(answer)
-        with self._cv:
-            self._resolving -= len(paired)
-            self._cv.notify_all()
+        with span("front.resolve", seq):
+            with self._cv:
+                paired: List[Tuple[Optional[Future], np.ndarray]] = [
+                    (self._pending.pop(r.seq, None), answer)
+                    for r, answer in results
+                ]
+                self._counters["served"] += len(results)
+                self._resolving += len(paired)
+            for fut, answer in paired:
+                if fut is not None and not fut.done():
+                    fut.set_result(answer)
+            with self._cv:
+                self._resolving -= len(paired)
+                self._cv.notify_all()

@@ -96,6 +96,7 @@ from repro_torch.kernels.backend import (
     scatter_update,
     shard_answer_fn,
 )
+from repro_torch.serve.spans import span
 
 __all__ = ["ServerStats", "ShardedBackend"]
 
@@ -598,6 +599,7 @@ class ShardedBackend:
         plan: Optional[ExecutionPlan] = None,
         scheme: Optional[object] = None,
         store: Optional[RecordStore] = None,
+        seq: Optional[int] = None,
     ) -> torch.Tensor:
         """Answer every contacted server, tracking per-replica latency.
 
@@ -610,7 +612,9 @@ class ShardedBackend:
         sample ends in a synchronisation of the calling thread's current
         stream on each device the answer ran on (the store's, or every
         device of the active mesh residency; d samples per batch), never
-        of a whole device.
+        of a whole device. The loop runs in the range ``answer#<seq>``
+        (the batch's number), each server's answer and sync in a child
+        ``answer.<path>`` (the plan's kernel path; ``serve/spans.py``).
 
         Returns stacked responses: [d_eff, B, W] (mask) or [d_eff, B, k, W]
         (index), ordered like ``routed.servers``.
@@ -620,21 +624,28 @@ class ShardedBackend:
         state = self._mesh_state()
         devices = ([self.device] if state is None
                    else state["mesh"].distinct_devices())
+        if routed.kind == "index":
+            name = "answer.direct"
+        else:
+            name = "answer." + (plan.path if plan is not None else "mask")
         responses = []
-        for pos, sid in enumerate(routed.servers):
-            t0 = time.perf_counter()
-            if routed.kind == "mask":
-                r, plan = self._answer_mask_server(
-                    routed.payload[pos], routed, plan, scheme, store
-                )
-            else:
-                r = self._answer_index_server(routed.payload[pos], store)
-            for dev in devices:
-                synchronize(dev)
-            self.observe_latency(
-                sid,
-                (self._sim(sid) if self._sim else 0.0)
-                + time.perf_counter() - t0,
-            )
-            responses.append(r)
-        return torch.stack(responses)
+        with span("answer", seq):
+            for pos, sid in enumerate(routed.servers):
+                with span(name):
+                    t0 = time.perf_counter()
+                    if routed.kind == "mask":
+                        r, plan = self._answer_mask_server(
+                            routed.payload[pos], routed, plan, scheme, store
+                        )
+                    else:
+                        r = self._answer_index_server(routed.payload[pos],
+                                                      store)
+                    for dev in devices:
+                        synchronize(dev)
+                    self.observe_latency(
+                        sid,
+                        (self._sim(sid) if self._sim else 0.0)
+                        + time.perf_counter() - t0,
+                    )
+                responses.append(r)
+            return torch.stack(responses)

@@ -565,7 +565,11 @@ def test_both_fronts_serve_the_same_records_and_count_alike():
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(b, tstore.record_bytes(q))
     np.testing.assert_array_equal(r_many, t_many)
-    assert set(t_m) == set(r_m)
+    # the port's front adds the pipeline's stage counters (queue wait from
+    # submit to cut) to the reference's keys, and nothing else
+    assert set(t_m) == set(r_m) | set(tpipe.stage_metrics)
+    assert t_m["queue_waited"] == len(queries) + 1
+    assert t_m["queue_wait_s"] >= 0.0
     for key in ("accepted", "served", "shed", "failed", "queries", "refused",
                 "ingested", "compacted", "epsilon_per_query"):
         assert t_m[key] == r_m[key], key

@@ -522,7 +522,8 @@ def test_every_reference_module_has_its_counterpart_in_the_port():
     rule (``_device.py``), the cost counter (``_cost.py``), the numpy
     bridge (``convert.py``), the kernels' build and shared checks
     (``kernels/_build.py``, ``kernels/_common.py``), the launchers'
-    package file and ``op_cost.py``."""
+    package file and ``op_cost.py``, and the serving path's profiler
+    ranges (``serve/spans.py``)."""
     def names(pkg):
         root = REPO / "src" / pkg
         return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
@@ -531,7 +532,8 @@ def test_every_reference_module_has_its_counterpart_in_the_port():
     assert ref - port == {"launch/hlo_cost.py"}
     assert port - ref == {"_device.py", "_cost.py", "convert.py",
                           "kernels/_build.py", "kernels/_common.py",
-                          "launch/__init__.py", "launch/op_cost.py"}
+                          "launch/__init__.py", "launch/op_cost.py",
+                          "serve/spans.py"}
 
 
 def test_port_never_probes_for_a_card_to_pick_the_cpu():
