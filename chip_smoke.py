@@ -54,12 +54,13 @@ GCN's Cora step, and the recommenders', GCN's and gemma-2's long-decode
 cells that fit), three at cut shapes on the card against the CPU, and
 the dry run of five on 256 meta positions with their roofline rows.
 Builds the CUDA kernels from the
-nine sources in this tree (flash attention has two: bf16 at head dims 64,
+ten sources in this tree (flash attention has two: bf16 at head dims 64,
 128 and 256 on wgmma, everything else on the TF32 tensor cores through
 mma.sync in three passes; the Sparse-PIR index compaction in front of the
-gather has one), holds each against its
-plain PyTorch version on the card (bit for bit for the six GF(2) kernels
-and the compaction, PIR is exact; within the reference's float tolerance
+gather has one, and so has the Sparse-PIR plan's mask draw), holds each
+against its plain PyTorch version on the card (bit for bit for the six
+GF(2) kernels, the compaction and the mask draw, PIR is exact; within the
+reference's float tolerance
 for flash attention, with and without the softcap and the query offset),
 times them with CUDA events (the gather at batches
 of 8, 32 and 1, on ascending ids and on shuffled ones; the fused gathers
@@ -139,12 +140,15 @@ def time_ms(fn, warmup: int = 2, iters: int = 10) -> float:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Largest absolute difference of two integer tensors (0 = bit-equal)."""
+    """Largest absolute difference of two integer tensors (0 = bit-equal),
+    taken 2^27 elements at a time: an int64 copy of a 12.8 GB mask would
+    not fit on the card."""
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
-    if a.numel() == 0:
-        return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+    fa, fb, step = a.reshape(-1), b.reshape(-1), 1 << 27
+    return max((int((fa[i:i + step].to(torch.int64)
+                     - fb[i:i + step].to(torch.int64)).abs().max().item())
+                for i in range(0, fa.numel(), step)), default=0)
 
 
 def random_mask(rng, q: int, n: int, density: float, device) -> torch.Tensor:
@@ -358,6 +362,8 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
     is cut into plan and execute; returns (label, pipe, planned) of that
     batch for ``per_server_split``, which waits until the path's counts are
     read."""
+    from repro_torch.kernels.sparse_masks import sparse_masks
+
     pipe = pir_ct.make_serving_pipeline(cfg, store=store_, device=dev, seed=6)
     torch.cuda.reset_peak_memory_stats()
     times, launches = [], []
@@ -373,12 +379,21 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
                 raise AssertionError("budget refused a request")
         return asked
 
+    def marks():
+        # the counted kernels' launches, then sparse_masks' and the batches
+        return [f_.launches for f_ in counted] + [
+            sparse_masks.launches, pipe.metrics["batches"]]
+
     def check(out, asked, before, what):
-        grew = [f_.launches - b for f_, b in zip(counted, before)]
+        *grew, masks, planned = [a - b for a, b in zip(marks(), before)]
         if any(g != cfg.d for g in grew):
             raise AssertionError(
                 f"{label}: {[f_.__name__ for f_ in counted]} launched {grew} "
                 f"times in {what}, expected d={cfg.d}")
+        # a Sparse-PIR plan draws its masks in one launch a batch
+        if masks != (planned if cfg.scheme == "sparse" else 0):
+            raise AssertionError(f"{label}: sparse_masks launched {masks} "
+                                 f"times in {what} of {planned} batches")
         for client, lst in asked.items():
             want = np.stack([store_.record_bytes(int(i)) for i in lst])
             if out[client].shape != (len(lst), cfg.record_bytes) or \
@@ -388,7 +403,7 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
 
     for _ in range(flushes):
         asked = submit()
-        before = [f_.launches for f_ in counted]
+        before = marks()
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = pipe.flush()
@@ -412,7 +427,7 @@ def serve_multi(label, pir_ct, cfg, store_, dev, rng, kernel, family,
     deferred = None
     if breakdown:
         asked = submit()
-        before = [f_.launches for f_ in counted]
+        before = marks()
         cut = pipe.take_batch()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -492,6 +507,54 @@ def device_split(fn, groups):
     return {"ms": split, "device_ms": busy, "wall_ms": wall * 1e3,
             "busy_share": busy / (wall * 1e3) if wall > 0 else None,
             "device_events": launches}
+
+
+def traced_ops(fn):
+    """Run ``fn`` once under torch.profiler: its result and the device
+    operations it launched, name -> count. Measurement only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ops_ = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ops_[e.name] = ops_.get(e.name, 0) + 1
+    return out, ops_
+
+
+def check_sparse_masks(n, cfg, rng, dev):
+    """sparse_masks.cu at the CT widths (n records, d servers, the plan's
+    own weight law at θ): at the audit bucket of 128 with the online
+    bucket of 8 riding along, each held bit for bit against the plain
+    version on the card and timed against the bytes it writes."""
+    from repro_torch.core import sparse
+    from repro_torch.kernels.sparse_masks import (
+        sparse_masks, sparse_masks_plain,
+    )
+
+    d, at = cfg.d, {}
+    for b in (8, 128):
+        pre = sparse.precompute_query_randomness(
+            torch.Generator(device=dev).manual_seed(b), n, d, cfg.theta, b)
+        q_idx = torch.from_numpy(rng.integers(0, n, size=b)).to(dev)
+        at[b] = check_kernel(
+            "sparse_masks", {"B": b, "n": n, "d": d, "theta": cfg.theta},
+            lambda: sparse_masks(pre.w_even, pre.w_q, q_idx, pre.key, d),
+            lambda: sparse_masks_plain(pre.w_even, pre.w_q, q_idx, pre.key, d),
+            # the masks written and the weights read
+            ((d + 1) * b * n / HBM_BYTES_PER_S * 1e3, "bytes"),
+            "sparse_masks.cu",
+            "src/repro/core/sparse.py:109 (no TPU kernel: jnp.argsort)",
+            plain_iters=1)
+        del pre, q_idx
+        torch.cuda.empty_cache()
+    at[128]["at_b8"] = {k: at[8][k] for k in (
+        "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return at[128]
 
 
 def device_runs_ms(kernel_fn, library_fn, kernel_name, runs, calls=10):
@@ -1722,8 +1785,9 @@ def async_and_fleet(pir_ct, online, store, red, small, rng, wrappers,
     for form, double in (("double_buffered", True), ("single", False)):
         runs[form], by_path[f"serve_async_sparse_ct_{form}"] = serve_async(
             "serve_async_sparse_ct", pir_ct, plain, store, rng, wrappers,
-            {"indices_from_mask": d, "gather_xor": d}, 256, read_counts,
-            reset_counts, double_buffer=double, trace=double)
+            {"indices_from_mask": d, "gather_xor": d, "sparse_masks": 1},
+            256, read_counts, reset_counts, double_buffer=double,
+            trace=double)
     sync_s = sync_sparse["flush_s"][-1]
     emit({"phase": "serve_async_sparse_ct", "card": smi, **{
         k: v for k, v in runs["double_buffered"].items()
@@ -4445,6 +4509,7 @@ def main() -> int:
         flash_attention_fwd, flash_attention_plain,
     )
     from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
+    from repro_torch.kernels.sparse_masks import sparse_masks
     from repro_torch.kernels.xor_fold import xor_fold, xor_fold_plain
     from repro_torch.serve import ShardedBackend
 
@@ -4462,6 +4527,7 @@ def main() -> int:
         "fused_multi_gather_fold": fused_multi_gather_fold,
         "flash_attention_fwd": flash_attention_fwd,
         "indices_from_mask": indices_from_mask,
+        "sparse_masks": sparse_masks,
     }
 
     def reset_counts():
@@ -4754,6 +4820,8 @@ def main() -> int:
     del got, up_vals, db_rows_before
     torch.cuda.empty_cache()
 
+    rows.append(check_sparse_masks(n, cfg, rng, dev))
+
     # fused_multi_gather_fold: timed at the operands its serving path gives
     # it (8 requests of k_max = 4 rows, every row live: the multi layout
     # pads with real dummy queries), at the reduced config's shape and at
@@ -5032,16 +5100,25 @@ def main() -> int:
                     raise AssertionError(
                         f"{label}: wrong record for index {int(i)}")
 
-        def per_batch(before, what):
+        def per_batch(before, batches0, what):
             for k in (expect_kernel,) + tuple(expect_also):
                 grew = wrappers[k].launches - before[k]
                 if grew != cfg_.d:
                     raise AssertionError(
                         f"{label}: {k} launched {grew} times in {what}, "
                         f"expected d={cfg_.d}")
+            # a Sparse-PIR plan draws its masks in one launch a batch
+            planned = pipe.metrics["batches"] - batches0
+            want = planned if cfg_.scheme == "sparse" else 0
+            grew = wrappers["sparse_masks"].launches - before["sparse_masks"]
+            if grew != want:
+                raise AssertionError(
+                    f"{label}: sparse_masks launched {grew} times in {what} "
+                    f"of {planned} planned batches, expected {want}")
 
         for f in range(flushes):
             before = {k: f_.launches for k, f_ in wrappers.items()}
+            batches0 = pipe.metrics["batches"]
             picks = submit_batch()
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -5050,7 +5127,7 @@ def main() -> int:
             times.append(time.perf_counter() - t)
             check(out, picks)
             served += batch
-            per_batch(before, "one batch")
+            per_batch(before, batches0, "one batch")
         if pipe.backend.path_counts[expect_path] != cfg_.d * flushes:
             raise AssertionError(f"{label}: {pipe.backend.path_counts}")
         line = {
@@ -5067,6 +5144,7 @@ def main() -> int:
             # one more batch through the pipeline's own entry points, cut
             # into its phases with a synchronisation after each
             before = {k: f_.launches for k, f_ in wrappers.items()}
+            batches0 = pipe.metrics["batches"]
             picks = submit_batch()
             cut = pipe.take_batch()
             torch.cuda.synchronize()
@@ -5079,13 +5157,31 @@ def main() -> int:
             torch.cuda.synchronize()
             execute_s = time.perf_counter() - t
             check({r.client: a for r, a in results}, picks)
-            per_batch(before, "the batch cut into phases")
+            per_batch(before, batches0, "the batch cut into phases")
             line["breakdown"] = {"plan_s": plan_s, "execute_s": execute_s}
             line["launches"] = {k: f_.launches for k, f_ in wrappers.items()}
             # steps of this batch re-run outside the entry points are
             # measurement, not the main path: they wait until the main
             # path's launch counts have been read
             deferred.append((label, pipe, planned))
+        if cfg_.scheme == "sparse":
+            # one more batch whose plan runs under torch.profiler: the
+            # slots are drawn by sparse_masks alone, with no sort
+            before = {k: f_.launches for k, f_ in wrappers.items()}
+            batches0 = pipe.metrics["batches"]
+            picks = submit_batch()
+            cut = pipe.take_batch()
+            planned, plan_ops = traced_ops(lambda: pipe.plan_requests(cut))
+            check({r.client: a for r, a in pipe.execute_planned(planned)},
+                  picks)
+            per_batch(before, batches0, "the traced batch")
+            if any("sort" in name.lower() for name in plan_ops):
+                raise AssertionError(f"{label}: the plan sorts: {plan_ops}")
+            if not any("sparse_masks" in name for name in plan_ops):
+                raise AssertionError(f"{label}: no sparse_masks kernel in "
+                                     f"the plan's trace: {plan_ops}")
+            line["plan_ops"] = plan_ops
+            line["launches"] = {k: f_.launches for k, f_ in wrappers.items()}
         line["launches_this_phase"] = {
             k: f_.launches - at_start[k] for k, f_ in wrappers.items()
             if f_.launches != at_start[k]}
@@ -5111,7 +5207,7 @@ def main() -> int:
     by_path = {"lookup": read_counts()}
     for name in ("xor_fold", "xor_fold_stream", "gather_xor",
                  "indices_from_mask", "fused_gather_fold",
-                 "parity_matmul_packed"):
+                 "parity_matmul_packed", "sparse_masks"):
         if by_path["lookup"][name] <= 0:
             raise AssertionError(f"main path never launched {name}")
 
@@ -5166,7 +5262,8 @@ def main() -> int:
              {"xor_fold": cfg.d_a + 1}, "fold", cfg.d_a + 1),
             ("serve_as_sparse_ct", dataclasses.replace(
                 online, scheme="as-sparse"),
-             {"gather_xor": d, "indices_from_mask": d}, "sparse", d)):
+             {"gather_xor": d, "indices_from_mask": d, "sparse_masks": 1},
+             "sparse", d)):
         reset_counts()
         serve_scheme(label, pir_ct, cfg_, store, dev, rng, wrappers, expect,
                      path, servers)

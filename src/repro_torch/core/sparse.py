@@ -5,7 +5,10 @@ conditioned on even parity (non-queried records) or odd parity (the sought
 record). The paper's equivalent sampling procedure — pick a
 parity-correct Hamming weight from the conditioned binomial pmf, then a
 uniform vector of that weight — is what is implemented, because it is
-rejection-free and vectorises over the whole [B, n] column grid.
+rejection-free: the weights are drawn over the whole [B, n] column grid,
+and :func:`~repro_torch.kernels.sparse_masks.sparse_masks` draws each
+column's uniform subset of that weight under a Philox key and writes the
+[d, B, n] masks in one pass.
 
 Server logic is *identical* to Chor (the server may be agnostic, §4.3);
 only the expected row weight drops from n/2 to θ·n, which the gather_xor
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core import chor
 from repro_torch.db import packing
+from repro_torch.kernels.sparse_masks import sparse_masks
 
 __all__ = [
     "MAX_CARD_DRAWS",
@@ -39,10 +43,6 @@ __all__ = [
 
 server_answer = chor.server_answer
 reconstruct = chor.reconstruct
-
-# columns of the [B, n, d] slot ranking drawn at once: bounds the float32
-# uniforms and the int64 sort order to a few hundred MB at d = 100
-_RANK_CHUNK_COLS = 1 << 17
 
 # the most draws one torch.multinomial call makes right on a CUDA
 # generator: on an H100 with torch 2.11, 2^30 - 1 draws came out right and
@@ -78,24 +78,22 @@ class SparsePre:
 
     ``w_even`` are the even-parity weights for every column, ``w_q`` the
     odd-parity weights the queried columns will be switched to, and
-    ``ranks`` the uniform slot ranking. :func:`assemble_query_matrix`
-    finishes the plan with one scatter + one compare. Single-use by
-    contract. Weights and ranks are stored uint8 (d ≤ 255) to keep a
-    batch at B·n·(d+1) bytes.
+    ``key`` the Philox key under which each column's slots are drawn.
+    :func:`assemble_query_matrix` finishes the plan with one
+    :func:`~repro_torch.kernels.sparse_masks.sparse_masks` call.
+    Single-use by contract. Weights are stored uint8 (d ≤ 255), so a batch
+    holds B·n + B + 16 bytes.
     """
 
     w_even: torch.Tensor  # [B, n] uint8 even-parity column weights
     w_q: torch.Tensor     # [B] uint8 odd-parity weights for queried columns
-    ranks: torch.Tensor   # [B, n, d] uint8 slot ranks
+    key: torch.Tensor     # [2] int64 Philox key words, each in [0, 2^32)
     n: int
-
-    @property
-    def d(self) -> int:
-        return int(self.ranks.shape[-1])
+    d: int
 
     @property
     def batch(self) -> int:
-        return int(self.ranks.shape[0])
+        return int(self.w_even.shape[0])
 
 
 def _categorical(
@@ -130,22 +128,15 @@ def precompute_query_randomness(
     if d < 2:
         raise ValueError(f"Sparse-PIR needs d >= 2 servers, got {d}")
     if d > 255:
-        raise ValueError(f"uint8 rank storage needs d <= 255, got {d}")
+        raise ValueError(f"uint8 weight storage needs d <= 255, got {d}")
     logits = parity_weight_logits(d, theta)
-    dev = gen.device
     w_even = _categorical(gen, logits[0], b * n).reshape(b, n)
     w_q = _categorical(gen, logits[1], b)
-    # uniform choice of `w` positions out of d: rank the d slots by iid
-    # uniforms and keep ranks < w. The rank is the inverse permutation of
-    # the sort order, written with one scatter; drawn in chunks of columns.
-    ranks = torch.empty((b, n, d), dtype=torch.uint8, device=dev)
-    slots = torch.arange(d, dtype=torch.uint8, device=dev)
-    for lo in range(0, n, _RANK_CHUNK_COLS):
-        hi = min(n, lo + _RANK_CHUNK_COLS)
-        u = torch.rand((b, hi - lo, d), generator=gen, device=dev)
-        order = torch.argsort(u, dim=-1)
-        ranks[:, lo:hi].scatter_(-1, order, slots.expand(b, hi - lo, d))
-    return SparsePre(w_even=w_even, w_q=w_q, ranks=ranks, n=n)
+    # the uniform choice of `w` slots out of d is drawn at assembly, from
+    # Philox under this key: nothing of size B·n·d is held in the plan
+    key = torch.randint(0, 1 << 32, (2,), generator=gen, device=gen.device,
+                        dtype=torch.int64)
+    return SparsePre(w_even=w_even, w_q=w_q, key=key, n=n, d=d)
 
 
 def assemble_query_matrix(pre: SparsePre, q_idx: torch.Tensor) -> torch.Tensor:
@@ -153,11 +144,7 @@ def assemble_query_matrix(pre: SparsePre, q_idx: torch.Tensor) -> torch.Tensor:
     (b,) = q_idx.shape
     if b != pre.batch:
         raise ValueError(f"pre built for batch {pre.batch}, got {b}")
-    dev = pre.w_even.device
-    w = pre.w_even.clone()
-    w[torch.arange(b, device=dev), q_idx.to(dev).long()] = pre.w_q
-    m = (pre.ranks < w.unsqueeze(-1)).to(torch.uint8)  # [B, n, d]
-    return m.permute(2, 0, 1).contiguous()  # [d, B, n]
+    return sparse_masks(pre.w_even, pre.w_q, q_idx, pre.key, pre.d)
 
 
 def gen_query_matrix(

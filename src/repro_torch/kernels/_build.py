@@ -37,6 +37,7 @@ SOURCES = (
     "fused_multi_gather_fold.cu",
     "parity_matmul.cu",
     "scatter_rows.cu",
+    "sparse_masks.cu",
     "flash_attention.cu",
     "flash_attention_wgmma.cu",
 )
@@ -68,6 +69,7 @@ _SIGNATURES = {
     "pir_fused_active_clusters": (_I, _I),
     "pir_parity_matmul": (_P, _L, _P, _L, _P, _L, _I, _I, _I, _I, _I, _P),
     "pir_scatter_rows": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pir_sparse_masks": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # ... causal, window, q_offset, softcap[, dtype], stream
     "pir_flash_attention_fwd": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,

@@ -55,8 +55,9 @@ with everything else.
 Memory: L1 is an LRU bounded by ``max_entries``; query columns larger
 than ``max_query_vector_bytes`` are dropped (the answer memo alone still
 short-circuits the server round-trip). L2 is bounded by
-``max_pre_batches`` per bucket — a SparsePre for bucket B costs ≈ B·n·d
-bytes, so the pool depth, not the entry count, is the knob.
+``max_pre_batches`` per bucket — a SparsePre for bucket B costs ≈ B·n
+bytes (its column weights; the slots are drawn at assembly from a key), so
+the pool depth, not the entry count, is the knob.
 
 Thread safety: one internal lock guards every structure mutation AND
 every ``metrics`` counter bump. The refusal memo may be consulted by
@@ -68,8 +69,8 @@ replaced, never mutated in place.
 
 **Device memory.** An L1 entry lives on the host (numpy answer bytes and
 query columns). An L2 pre lives where it was drawn — on the card for a
-pipeline on the card: a Sparse-PIR plan at the CT scale is B·n·(d+1)
-bytes (808 MB at B = 8, n = 10⁶, d = 100), so the pool holds at most
+pipeline on the card: a Sparse-PIR plan at the CT scale is B·n + B + 16
+bytes (8 MB at B = 8, n = 10⁶), so the pool holds at most
 ``max_pre_batches`` of them per bucket; :attr:`QueryCache.pre_bytes`
 reports what it holds.
 

@@ -138,16 +138,16 @@ def test_pre_pool_is_single_use_and_bounded():
 
 def test_pre_pool_reports_the_plans_bytes_under_its_depth_bound():
     """The pooled plans hold device memory (a Sparse-PIR plan is
-    B·n·(d+1) bytes): the pool is bounded by ``max_pre_batches`` per
+    B·n + B + 16 bytes): the pool is bounded by ``max_pre_batches`` per
     bucket, as in the reference, and ``pre_bytes`` reports what the
     banked plans hold; a popped plan gives its bytes back."""
     sch = make_scheme("sparse", d=4, d_a=2, theta=0.25)
     router = SchemeRouter(sch)
     pre = router.precompute(_gen(0), 64, 8)
     nbytes = pre_nbytes(pre)
-    assert nbytes == 8 * 64 * (4 + 1) + 8  # ranks, even weights, w_q
+    assert nbytes == 8 * 64 + 8 + 16  # even weights, w_q, the Philox key
     small = router.precompute(_gen(1), 64, 4)
-    assert pre_nbytes(small) == 4 * 64 * 5 + 4
+    assert pre_nbytes(small) == 4 * 64 + 4 + 16
     cache = QueryCache(sch, 64, max_pre_batches=1)
     assert block_pre_ready(pre) is pre
     assert cache.put_pre(8, pre) and cache.pre_bytes == nbytes

@@ -41,6 +41,7 @@ from repro_torch.kernels.parity_matmul import (
     parity_matmul_plain,
 )
 from repro_torch.kernels.scatter import scatter_rows, scatter_rows_plain
+from repro_torch.kernels.sparse_masks import sparse_masks, sparse_masks_plain
 from repro_torch.kernels.xor_fold import (
     STREAM,
     TABLE,
@@ -575,6 +576,49 @@ def test_scatter_rows_kernel_on_a_row_slice(cuda_device):
     rows = torch.tensor([0, 5], dtype=torch.int32, device=cuda_device)
     vals = torch.full((2, 9), 255, dtype=torch.uint8, device=cuda_device)
     _same(scatter_rows(db, rows, vals), scatter_rows_plain(db, rows, vals))
+
+
+# --------------------------------------------------------------- sparse_masks
+def _mask_operands(b, n, d, device, seed):
+    """Weights drawn uniformly from 0..d (both of the kernel's branches:
+    the ones drawn, and the zeros drawn then flipped), queried columns at
+    0 and n - 1 among others, and a key; all on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    w_even = torch.randint(0, d + 1, (b, n), generator=gen).to(torch.uint8)
+    w_q = torch.randint(0, d + 1, (b,), generator=gen).to(torch.uint8)
+    q_idx = torch.randint(0, n, (b,), generator=gen)
+    q_idx[0], q_idx[-1] = 0, n - 1
+    key = torch.randint(0, 1 << 32, (2,), generator=gen)
+    return [t.to(device) for t in (w_even, w_q, q_idx, key)]
+
+
+@pytest.mark.parametrize("b", [1, 3, 128])
+@pytest.mark.parametrize("n", [1, 7, 4099, 10**5])
+@pytest.mark.parametrize("d", [2, 4, 31, 32, 33, 100, 255])
+def test_sparse_masks_kernel_equals_plain(cuda_device, d, n, b):
+    """Bit for bit, at every bitmap width (1, 2, 4, 8 words), at runs cut
+    by the row's end and at rows off 16-byte alignment."""
+    ops_ = _mask_operands(b, n, d, cuda_device, seed=1000 * d + 10 * n + b)
+    before = sparse_masks.launches
+    got = sparse_masks(*ops_, d)
+    assert sparse_masks.launches == before + 1
+    want = sparse_masks_plain(*ops_, d)
+    torch.cuda.synchronize()
+    assert got.shape == (d, b, n) and got.dtype == torch.uint8
+    assert torch.equal(got, want)
+
+
+def test_sparse_masks_kernel_past_2_31_output_bytes(cuda_device):
+    """A [100, 8, 2.7e6] output (2.16e9 bytes): the rows past 2^31 bytes
+    land where the plain version puts them, checked a server at a time."""
+    d, b, n = 100, 8, 2_700_000
+    assert d * b * n > 2**31
+    ops_ = _mask_operands(b, n, d, cuda_device, seed=31)
+    got = sparse_masks(*ops_, d)
+    want = sparse_masks_plain(*ops_, d)
+    torch.cuda.synchronize()
+    for s in range(d):
+        assert torch.equal(got[s], want[s]), s
 
 
 # ---------------------------------------------------- fused_multi_gather_fold
@@ -1882,7 +1926,7 @@ def test_a_sparse_plan_past_the_cards_draws_is_drawn_right(cuda_device):
     assert pre.w_even.shape == (b, n) and pre.w_even.dtype == torch.uint8
     assert int((pre.w_even % 2).sum()) == 0
     assert int((pre.w_q % 2).min()) == 1
-    assert pre.ranks.shape == (b, n, d)
+    assert tuple(pre.key.shape) == (2,) and pre.key.device.type == "cuda"
     # the law of tests/test_torch_schemes.py: each server's mean row weight
     # within 6 sigma of n·P[bit = 1 | even column]
     x = (1 - 2 * theta) ** d

@@ -25,6 +25,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.protocol import Answers, ChorScheme, SparseScheme, as_protocol
 from repro_torch.db import make_synthetic_store
+from repro_torch.kernels.sparse_masks import philox4x32_10, sparse_masks
 
 from _torch_parity import CPU, words_t2n
 
@@ -154,14 +155,118 @@ def test_sparse_weight_logits_equal_reference():
 
 def test_sparse_parity_never_violated_at_wide_d():
     """-inf logits must get probability exactly 0 (d = 100: float32
-    underflow territory)."""
+    underflow territory), and each assembled column holds exactly its
+    drawn weight."""
     pre = sparse.precompute_query_randomness(_gen(1), 4000, 100, 0.25, 2)
     assert int((pre.w_even % 2).sum()) == 0
     assert int((pre.w_q % 2).min()) == 1
-    assert pre.ranks.dtype == torch.uint8
-    assert torch.equal(
-        pre.ranks.long().sort(-1).values,
-        torch.arange(100).expand(2, 4000, 100))
+    assert pre.key.dtype == torch.int64 and tuple(pre.key.shape) == (2,)
+    q_idx = torch.tensor([0, 3999], dtype=torch.int32)
+    want = pre.w_even.long()
+    want[torch.arange(2), q_idx.long()] = pre.w_q.long()
+    m = sparse.assemble_query_matrix(pre, q_idx)
+    assert torch.equal(m.sum(0, dtype=torch.int64), want)
+
+
+# ------------------------------------------- the Sparse-PIR mask kernel's law
+# upper 1e-6 quantiles of chi-squared at these degrees of freedom
+CHI2_1E6 = {3: 30.664849706213598, 5: 35.888186879672865,
+            14: 54.63530553003881, 99: 180.79201532589974}
+
+
+def test_philox_matches_the_published_known_answers():
+    """Philox4x32-10's known-answer vectors (Random123's kat_vectors)."""
+    f = 0xFFFFFFFF
+    cases = [((0, 0, 0, 0), (0, 0),
+              (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+             ((f, f, f, f), (f, f),
+              (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+             ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+              (0xA4093822, 0x299F31D0),
+              (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1))]
+    for ctr, key, want in cases:
+        assert philox4x32_10(ctr, key) == want
+        got = philox4x32_10(tuple(torch.tensor([c]) for c in ctr), key)
+        assert tuple(int(g) for g in got) == want
+
+
+@pytest.mark.parametrize("d,theta", [(2, 0.25), (5, 0.3), (100, 0.25),
+                                     (255, 0.5)])
+def test_sparse_masks_hold_each_columns_weight_and_parity(d, theta):
+    """Every column of the assembled masks holds exactly its drawn weight
+    (``w_even``, or ``w_q`` at the queried column), so the servers' rows
+    XOR to one-hot(q_idx) exactly."""
+    n, b = 257, 3
+    pre = sparse.precompute_query_randomness(_gen(d), n, d, theta, b)
+    q_idx = torch.tensor([0, n - 1, 77], dtype=torch.int32)
+    m = sparse.assemble_query_matrix(pre, q_idx)
+    assert m.shape == (d, b, n) and m.dtype == torch.uint8
+    assert int(m.max()) <= 1
+    want = pre.w_even.long()
+    want[torch.arange(b), q_idx.long()] = pre.w_q.long()
+    assert torch.equal(m.sum(0, dtype=torch.int64), want)
+    onehot = torch.zeros(b, n, dtype=torch.int64)
+    onehot[torch.arange(b), q_idx.long()] = 1
+    assert torch.equal(m.sum(0, dtype=torch.int64) % 2, onehot)
+
+
+def _fixed_weight_masks(d, w, b, n, key):
+    w_even = torch.full((b, n), w, dtype=torch.uint8)
+    return sparse_masks(w_even, w_even[:, 0].clone(),
+                        torch.zeros(b, dtype=torch.int64),
+                        torch.tensor(key, dtype=torch.int64), d)
+
+
+@pytest.mark.parametrize("d,w", [(4, 1), (4, 3), (6, 2), (6, 4), (100, 25),
+                                 (100, 74)])
+def test_sparse_masks_slots_are_uniform(d, w):
+    """At a fixed weight each slot is chosen with probability w/d: the
+    slots' counts over C columns pass a chi-squared test at 1e-6. A column
+    is a uniform w-subset, so the counts' covariance is C·p(1−p)·d/(d−1)
+    (I − J/d), p = w/d, and the statistic below is chi-squared with d − 1
+    degrees of freedom."""
+    b, n = 4, 5000
+    m = _fixed_weight_masks(d, w, b, n, (12345, 678))
+    cols = b * n
+    assert torch.equal(m.sum(0, dtype=torch.int64),
+                       torch.full((b, n), w, dtype=torch.int64))
+    counts = m.reshape(d, cols).sum(1, dtype=torch.float64)
+    p = w / d
+    var = cols * p * (1 - p) * d / (d - 1)
+    stat = float(((counts - cols * p) ** 2).sum() / var)
+    assert stat < CHI2_1E6[d - 1], stat
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_sparse_masks_draw_every_subset_alike(w):
+    """At d = 6 each of the 15 subsets of weight 2 (and their complements,
+    weight 4: the zeros drawn) comes out equally often: chi-squared with
+    14 degrees of freedom at 1e-6."""
+    d, b, n = 6, 3, 10_000
+    m = _fixed_weight_masks(d, w, b, n, (2**32 - 1, 99))
+    code = (m.reshape(d, -1).long() << torch.arange(d)[:, None]).sum(0)
+    values, counts = torch.unique(code, return_counts=True)
+    assert len(values) == 15
+    assert all(bin(int(v)).count("1") == w for v in values)
+    expect = b * n / 15
+    stat = float(((counts.double() - expect) ** 2).sum() / expect)
+    assert stat < CHI2_1E6[14], stat
+
+
+def test_sparse_masks_follow_the_key():
+    """The same key gives the same masks; another key gives others. On
+    CPU tensors no kernel is launched."""
+    w_even = sparse.precompute_query_randomness(
+        _gen(4), 300, 100, 0.25, 2).w_even
+    args = (w_even, torch.tensor([3, 5], dtype=torch.uint8),
+            torch.tensor([0, 299]))
+    before = sparse_masks.launches
+    one = sparse_masks(*args, torch.tensor([1, 2]), 100)
+    assert sparse_masks.launches == before
+    assert torch.equal(one, sparse_masks(*args, torch.tensor([1, 2]), 100))
+    other = sparse_masks(*args, torch.tensor([1, 3]), 100)
+    assert not torch.equal(one, other)
+    assert torch.equal(one.sum(0), other.sum(0))
 
 
 def test_chor_wire_format_round_trip():

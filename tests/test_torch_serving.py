@@ -521,9 +521,11 @@ def test_every_reference_module_has_its_counterpart_in_the_port():
     (``launch/op_cost.py``, its role). The port's own extras: the device
     rule (``_device.py``), the cost counter (``_cost.py``), the numpy
     bridge (``convert.py``), the kernels' build and shared checks
-    (``kernels/_build.py``, ``kernels/_common.py``), the launchers'
-    package file and ``op_cost.py``, and the serving path's profiler
-    ranges (``serve/spans.py``)."""
+    (``kernels/_build.py``, ``kernels/_common.py``), the Sparse-PIR
+    plan's mask kernel (``kernels/sparse_masks.py``: the reference draws
+    with ``jnp.argsort``, no kernel), the launchers' package file and
+    ``op_cost.py``, and the serving path's profiler ranges
+    (``serve/spans.py``)."""
     def names(pkg):
         root = REPO / "src" / pkg
         return {p.relative_to(root).as_posix() for p in root.rglob("*.py")}
@@ -532,6 +534,7 @@ def test_every_reference_module_has_its_counterpart_in_the_port():
     assert ref - port == {"launch/hlo_cost.py"}
     assert port - ref == {"_device.py", "_cost.py", "convert.py",
                           "kernels/_build.py", "kernels/_common.py",
+                          "kernels/sparse_masks.py",
                           "launch/__init__.py", "launch/op_cost.py",
                           "serve/spans.py"}
 
