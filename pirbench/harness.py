@@ -14,7 +14,8 @@ deployment (``pirbench/configs/<config>.json``) and a traffic mix
    the masks the servers were sent and the answers they gave;
 3. once the window has closed, waits for every lookup it sent, reads the
    peak of device memory, frees the program, and holds what came back
-   to ``pirbench/reference.py``.
+   to ``pirbench/reference.py`` and to the laws of the configuration's
+   scheme (``pirbench/schemes/<scheme>.py``).
 
 With ``trace`` the window runs under ``torch.profiler`` and the cell's
 per-layer metrics are read from the trace by ``pirbench/metrics/*.py``;
@@ -38,7 +39,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from pirbench import reference, trace as tracing, yardstick
+from pirbench import reference, schemes, trace as tracing, yardstick
 from pirbench.traffic import generator
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -46,10 +47,16 @@ HERE = ROOT / "pirbench"
 
 # how long the run waits, after the window closes, for lookups still due
 GRACE_S = 60.0
-# the batches whose masks and answers are kept for the reference, and the
-# lookups of each
+# the batches whose queries and answers are kept for the reference, and
+# the lookups of each
 KEEP_BATCHES = 4
 KEEP_COLUMNS = 2
+# the limit of a number ``correct`` compares where the configuration's
+# ``limits`` states none (each one stated is the configuration's)
+DEFAULT_LIMITS = {"delta_gap": 1e-6}
+# the limits each wire kind needs stated
+KIND_LIMITS = {"mask": ("density_z", "eps_gap"),
+               "index": ("dummies_z", "eps_gap")}
 
 # keys of a configuration file that describe it and are not handed to the
 # program; every other key has to name a field of the program's PIRConfig
@@ -233,12 +240,17 @@ class Probe:
     calls them through ``self``).
 
     Always: for a sample of the batches answered while armed (a reservoir
-    drawn from the seed), the masks of a few of its lookups and every
-    server's answers to them are copied aside. With ``ranges``: each call
-    of a layer that a reader of ``metrics/`` reads (the plan and the
-    answers) runs in a ``record_function`` range ``pirbench.<layer>#k``,
-    and each answered batch's shape is noted for the least time its
-    answers need."""
+    drawn from the seed), the servers it contacted, the queries of a few
+    of its lookups (their masks, or their record ids) and every server's
+    answers to them are copied aside, into buffers made, and a copy
+    rehearsed, on the first batch it sees before it is armed: the set-up's,
+    so that nothing is allocated, uploaded or loaded for the copies
+    inside the window (an allocation there stalled the window's first
+    batch by 0.3 to 0.6 s on an H100). With ``ranges``: each call of a
+    layer that a reader of ``metrics/`` reads (the plan and the answers)
+    runs in a ``record_function`` range ``pirbench.<layer>#k``, and each
+    answered batch's shape (an index batch: its ids) is noted for the
+    least time its answers need."""
 
     def __init__(self, pipe, seed: int, ranges: bool):
         self.pipe = pipe
@@ -247,6 +259,8 @@ class Probe:
         self.armed = False
         self.seen = 0
         self.kept: List[dict] = []
+        # KEEP_BATCHES (queries, answers) buffers of KEEP_COLUMNS lookups
+        self.slots: Optional[List[tuple]] = None
         self.shapes: Dict[int, dict] = {}
         self.buckets: collections.Counter = collections.Counter()
         self._tls = threading.local()
@@ -293,6 +307,9 @@ class Probe:
                 self.shapes[seq] = {
                     "servers": int(m.shape[0]), "bucket": int(m.shape[1]),
                     "n": int(m.shape[2])}
+            elif routed.kind == "index":
+                # [servers, bucket, p/d] ids: counted once the window closed
+                self.shapes[seq] = {"ids": routed.payload}
         else:
             responses = self._answer(routed, **kw)
         planned = getattr(self._tls, "planned", None)
@@ -301,10 +318,16 @@ class Probe:
         if self.armed:
             self.buckets[int(routed.payload.shape[1])] += 1
             self._offer(routed, responses, planned, live)
+        elif self.slots is None:
+            self.slots = [_columns_like(routed.payload, responses)
+                          for _ in range(KEEP_BATCHES)]
+            queries, answers = self.slots[0]
+            queries[:, 0].copy_(routed.payload[:, 0])
+            answers[:, 0].copy_(responses[:, 0])
         return responses
 
     def _offer(self, routed, responses, planned, live: int) -> None:
-        if routed.kind != "mask" or live < 1:
+        if live < 1:
             return
         self.seen += 1
         if len(self.kept) < KEEP_BATCHES:
@@ -315,14 +338,19 @@ class Probe:
                 return
         cols = np.sort(self.rng.choice(live, size=min(KEEP_COLUMNS, live),
                                        replace=False))
-        idx = torch.as_tensor(cols, device=routed.payload.device)
         if planned is not None:
             indices = [int(planned.misses[c].index) for c in cols]
         else:
+            idx = torch.as_tensor(cols, device=routed.payload.device)
             indices = [int(i) for i in routed.q_idx[idx].cpu()]
+        queries, answers = self.slots[slot]
+        for j, c in enumerate(cols):
+            queries[:, j].copy_(routed.payload[:, int(c)])
+            answers[:, j].copy_(responses[:, int(c)])
         entry = {"indices": indices,
-                 "masks": routed.payload.index_select(1, idx),
-                 "answers": responses.index_select(1, idx)}
+                 "servers": tuple(int(s) for s in routed.servers),
+                 "queries": queries[:, :len(cols)],
+                 "answers": answers[:, :len(cols)]}
         if slot == len(self.kept):
             self.kept.append(entry)
         else:
@@ -331,17 +359,36 @@ class Probe:
     def least_s(self, words: int, config: dict) -> Dict[int, float]:
         """The least time each traced batch's answers need. The records a
         server's masks select are counted as the configuration's scheme
-        draws them (``reference.weight_moments``; ``density_z`` holds the
-        masks the run kept to that draw), not from the masks themselves:
-        counting 12.8 GB of masks a batch would take the card longer than
-        some of the answers do."""
-        mean, _ = reference.weight_moments(
-            config["scheme"], config.get("theta"), int(config["d"]),
-            odd=False)
-        p = mean / int(config["d"])
+        draws them (``reference.weight_moments`` under the scheme's laws;
+        ``density_z`` holds the masks the run kept to that draw), not from
+        the masks themselves: counting 12.8 GB of masks a batch would take
+        the card longer than some of the answers do. An index batch's ids
+        are few: each server's distinct ones are counted."""
+        laws = schemes.laws(config["scheme"])
+        if laws.kind == "index":
+            least = {}
+            for seq, c in self.shapes.items():
+                ids = c["ids"].cpu().numpy()
+                ids = np.sort(ids.reshape(ids.shape[0], -1), axis=1)
+                distinct = 1 + (np.diff(ids, axis=1) != 0).sum(axis=1)
+                least[seq] = sum(yardstick.gather_s(ids.shape[1], words,
+                                                    int(m)) for m in distinct)
+            return least
+        servers = laws.servers(config)
+        mean, _ = reference.weight_moments(laws.density(config), servers,
+                                           odd=False)
+        p = mean / servers
         return {seq: c["servers"] * yardstick.answer_s(
                     c["n"], words, c["bucket"], p)
                 for seq, c in self.shapes.items()}
+
+
+def _columns_like(queries, answers) -> tuple:
+    """Device buffers for KEEP_COLUMNS lookups of a batch whose queries and
+    answers are shaped [servers, bucket, ...] like these."""
+    return tuple(torch.empty((t.shape[0], KEEP_COLUMNS, *t.shape[2:]),
+                             dtype=t.dtype, device=t.device)
+                 for t in (queries, answers))
 
 
 # ------------------------------------------------------------------ set-up
@@ -368,6 +415,28 @@ def warm(pipe, cap: int, n: int) -> None:
     synchronize(pipe.device)
 
 
+def warm_front(fe, cap: int, n: int) -> None:
+    """Send a burst of every bucket's size through the started front and
+    wait for each, then for the front's idle slot to bank the plans the
+    bursts took: its threads, its side stream and what they allocate come
+    up in the set-up, not in an open loop's window (a closed loop's
+    preroll does the same)."""
+    offset = n // 4
+    for b in buckets(cap):
+        futures = [fe.submit("warmup", (offset + j * 7919) % n)
+                   for j in range(b)]
+        offset += 7919 * b
+        for f in futures:
+            f.result(timeout=GRACE_S)
+    fe.drain(timeout=GRACE_S)
+    banked, settled = fe.metrics.get("prefilled"), time.perf_counter()
+    while time.perf_counter() - settled < 0.05:
+        time.sleep(0.01)
+        now = fe.metrics.get("prefilled")
+        if now != banked:
+            banked, settled = now, time.perf_counter()
+
+
 # ---------------------------------------------------------------- judging
 def percentile(values: List[float], q: float) -> float:
     """The ``q``-th percentile with numpy's linear rule, where a missing
@@ -384,57 +453,134 @@ def percentile(values: List[float], q: float) -> float:
     return v[lo] + (v[hi] - v[lo]) * (pos - lo)
 
 
-def judge(raw: np.ndarray, sent: List[Lookup], good: set, kept: List[dict],
-          charged: Dict[str, tuple], config: dict, device) -> dict:
-    """Every number the run's ``correct`` rests on, each with its limit
-    (``pirbench/configs/<config>.json`` ``limits``). ``good`` holds the
-    ids of the lookups that came back with their record's bytes."""
-    nbytes = raw.shape[1]
-    wrong = len(sent) - len(good)
-    scheme, theta = config["scheme"], config.get("theta")
-    raw_words = reference.word_view(torch.from_numpy(raw).to(device))
-    answers_checked = answer_errors = parity_errors = 0
-    ones, queries = 0.0, 0
+def limits(config: dict, kind: str) -> Dict[str, float]:
+    """The limits of a configuration's numbers: its ``limits``, with
+    ``DEFAULT_LIMITS`` where it states none; a KeyError where it leaves
+    out one that its scheme's wire ``kind`` needs."""
+    stated = dict(config.get("limits", {}))
+    missing = [k for k in KIND_LIMITS[kind] if k not in stated]
+    if missing:
+        raise KeyError(f"configuration {config.get('name')!r} states no "
+                       f"limit for {missing}")
+    return {**DEFAULT_LIMITS, **{k: float(v) for k, v in stated.items()}}
+
+
+def _judge_masks(kept, laws, config, raw_words, nbytes, device) -> dict:
+    """What a mask scheme's kept queries show: each server's answer
+    against the XOR of the rows its mask selects, each query's masks
+    folding to its index, and the ones they set against the law's
+    density over their own number of servers."""
+    n = int(config["n_records"])
+    checked = errors = parity_errors = 0
+    ones = 0.0
+    queries: collections.Counter = collections.Counter()  # by servers
     for entry in kept:
-        masks = entry["masks"].to(device)
+        masks = entry["queries"].to(device)
         got = reference.answer_bytes(entry["answers"].to(device), nbytes)
         for j, index in enumerate(entry["indices"]):
             q = reference.judge_query(masks[:, j], index)
             parity_errors += not q["parity_ok"]
             ones += q["ones"]
-            queries += 1
+            queries[int(masks.shape[0])] += 1
             want = reference.server_answers(raw_words, masks[:, j])
-            answer_errors += int((want != got[:, j]).any(dim=1).sum())
-            answers_checked += int(want.shape[0])
-    del raw_words
-    eps_ref, delta_ref = reference.privacy(
-        scheme, int(config["d"]), int(config["d_a"]), theta)
+            errors += int((want != got[:, j]).any(dim=1).sum())
+            checked += int(want.shape[0])
+    return {"checked": checked, "errors": errors,
+            "parity_errors": parity_errors,
+            "density_z": reference.density_z(queries, laws.density(config),
+                                             n, ones)}
+
+
+def _judge_requests(kept, laws, config, raw, nbytes, device) -> dict:
+    """What an index scheme's kept lookups show: each lookup's p ids
+    distinct, split p/d a server and holding its index once; each row
+    returned equal to the store's; the dummies' sum against the uniform
+    draw from the other records."""
+    n, d = int(config["n_records"]), int(config["d"])
+    p, per = laws.requests(config), laws.per_server(config)
+    raw_t = torch.from_numpy(raw).to(device)
+    checked = errors = request_errors = 0
+    total, mean, var = 0.0, 0.0, 0.0
+    for entry in kept:
+        reqs = entry["queries"].to(device).long()  # [servers, cols, p/d]
+        got = reference.answer_bytes(entry["answers"].to(device), nbytes)
+        for j, index in enumerate(entry["indices"]):
+            ids = reqs[:, j].reshape(-1)
+            inside = (ids >= 0) & (ids < n)
+            request_errors += not (
+                tuple(reqs.shape[::2]) == (d, per) and ids.numel() == p
+                and bool(inside.all())
+                and int(torch.unique(ids).numel()) == ids.numel()
+                and int((ids == index).sum()) == 1)
+            want = raw_t.index_select(0, ids.clamp(0, n - 1))
+            wrong = (want != got[:, j].reshape(-1, nbytes)).any(dim=1)
+            errors += int((wrong | ~inside).sum())
+            checked += int(ids.numel())
+            dummies = ids[ids != index]
+            total += float(dummies.sum())
+            m, v = reference.dummy_moments(n, index, int(dummies.numel()))
+            mean += m
+            var += v
+    z = reference.z_score(total, mean, var) if checked else math.inf
+    return {"checked": checked, "errors": errors,
+            "request_errors": request_errors, "dummies_z": z}
+
+
+def judge(raw: np.ndarray, sent: List[Lookup], good: set, kept: List[dict],
+          charged: Dict[str, tuple], config: dict, device) -> dict:
+    """Every number the run's ``correct`` rests on, each with its limit
+    (``pirbench/configs/<config>.json`` ``limits``, else
+    ``DEFAULT_LIMITS``). ``good`` holds the ids of the lookups that came
+    back with their record's bytes. The scheme's laws
+    (``pirbench/schemes/<scheme>.py``) say what its queries are and what
+    a lookup costs."""
+    laws = schemes.laws(config["scheme"])
+    lim = limits(config, laws.kind)
+    nbytes = raw.shape[1]
+    d = int(config["d"])
+    want_servers = laws.servers(config)
+    server_errors = 0
+    for entry in kept:
+        ids = entry["servers"]
+        server_errors += not (
+            len(ids) == want_servers == int(entry["queries"].shape[0])
+            and len(set(ids)) == len(ids) and all(0 <= s < d for s in ids))
+    if laws.kind == "mask":
+        raw_words = reference.word_view(torch.from_numpy(raw).to(device))
+        seen = _judge_masks(kept, laws, config, raw_words, nbytes, device)
+        del raw_words
+        own = {"parity_errors": (seen["parity_errors"], 0, "<="),
+               "density_z": (seen["density_z"], lim["density_z"], "<=")}
+    else:
+        seen = _judge_requests(kept, laws, config, raw, nbytes, device)
+        own = {"request_errors": (seen["request_errors"], 0, "<="),
+               "dummies_z": (seen["dummies_z"], lim["dummies_z"], "<=")}
+    eps_ref, delta_ref = laws.privacy(config)
     count = collections.Counter(r.client for r in sent if not r.shed)
-    eps_gap, delta_spent = 0.0, 0.0
+    eps_gap = delta_gap = 0.0
     for client, k in count.items():
         eps, delta = charged[client]
-        want = k * eps_ref
-        if want > 0:
-            gap = abs(eps - want) / want
-        else:
-            gap = 0.0 if eps == 0 else math.inf
-        eps_gap = max(eps_gap, gap)
-        delta_spent = max(delta_spent, abs(delta - k * delta_ref))
-    lim = config["limits"]
+        eps_gap = max(eps_gap, _relative_gap(eps, k * eps_ref))
+        delta_gap = max(delta_gap, _relative_gap(delta, k * delta_ref))
     checks = {
-        "lookup_errors": (wrong, 0, "<="),
-        "answers_checked": (answers_checked, 1, ">="),
-        "answer_errors": (answer_errors, 0, "<="),
-        "parity_errors": (parity_errors, 0, "<="),
-        "density_z": (reference.density_z(
-            scheme, theta, int(config["d"]), int(config["n_records"]),
-            queries, ones) if queries else math.inf,
-                      float(lim["density_z"]), "<="),
-        "eps_gap": (eps_gap, float(lim["eps_gap"]), "<="),
-        "delta_gap": (delta_spent, 0.0, "<="),
+        "lookup_errors": (len(sent) - len(good), 0, "<="),
+        "answers_checked": (seen["checked"], 1, ">="),
+        "answer_errors": (seen["errors"], 0, "<="),
+        "server_errors": (server_errors, 0, "<="),
+        **own,
+        "eps_gap": (eps_gap, lim["eps_gap"], "<="),
+        "delta_gap": (delta_gap, lim["delta_gap"], "<="),
     }
     return {k: {"value": v, "limit": l, "rule": r}
             for k, (v, l, r) in checks.items()}
+
+
+def _relative_gap(charged: float, want: float) -> float:
+    """|charged − want| ÷ want; where want is 0, 0 if nothing was charged
+    and ∞ otherwise."""
+    if want > 0:
+        return abs(charged - want) / want
+    return 0.0 if charged == 0 else math.inf
 
 
 def passed(checks: dict) -> bool:
@@ -447,6 +593,13 @@ def passed(checks: dict) -> bool:
 
 
 # --------------------------------------------------------------------- run
+def unlimited_budget():
+    """A client's privacy budget with no limit on ε or δ."""
+    from repro_torch.core.accounting import PrivacyBudget
+
+    return PrivacyBudget(epsilon_limit=math.inf, delta_limit=math.inf)
+
+
 def set_up(cell: Cell, seed: int, dev: torch.device, trace: bool,
            overrides: Optional[dict] = None,
            log: Callable[[str], None] = lambda s: None) -> tuple:
@@ -458,12 +611,17 @@ def set_up(cell: Cell, seed: int, dev: torch.device, trace: bool,
     config = cell.config
     n, nbytes = int(config["n_records"]), int(config["record_bytes"])
     pcfg = pir_config(config, cell.mix, overrides)
-    # a scheme the reference cannot judge is refused before any work
-    reference.privacy(config["scheme"], int(config["d"]), int(config["d_a"]),
-                      config.get("theta"))
+    # a scheme the reference cannot judge, or a configuration that leaves
+    # out what its laws or its limits need, is refused before any work
+    laws = schemes.laws(config["scheme"])
+    laws.privacy(config)
+    laws.servers(config)
+    limits(config, laws.kind)
     raw = reference.store_bytes(n, nbytes, seed)
     store = RecordStore.from_bytes(raw, device=dev)
-    fe = make_async_frontend(pcfg, store=store, device=dev, seed=seed)
+    # no client runs out of budget: the charge itself is what is judged
+    fe = make_async_frontend(pcfg, store=store, device=dev, seed=seed,
+                             default_budget=unlimited_budget)
     probe = Probe(fe.pipeline, seed, ranges=trace)
     warm(fe.pipeline, pcfg.query_batch, n)
     log("planner: " + "; ".join(
@@ -471,6 +629,8 @@ def set_up(cell: Cell, seed: int, dev: torch.device, trace: bool,
         f"({ {k: round(v) for k, v in e['us'].items()} } us)"
         for key, e in fe.pipeline.backend.planner.table.items()))
     fe.start()
+    if cell.mix["loop"] == "open":
+        warm_front(fe, pcfg.query_batch, n)
     return raw, store, fe, probe
 
 
@@ -569,7 +729,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *,
         tr = tracing.reduce_profile(prof)
         del prof
         ctx = types.SimpleNamespace(trace=tr, counters=delta,
-                                    answer_least=least, cell=cell)
+                                    answer_least=least, cell=cell,
+                                    latencies=latencies(cell, sent, good))
         metrics = {}
         for m in cell.per_layer:
             v = metric_reader(m["name"])(ctx)
@@ -600,6 +761,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, *,
     return result
 
 
+def latencies(cell: Cell, sent: List[Lookup], good: set
+              ) -> Optional[List[float]]:
+    """Each lookup's seconds from its scheduled arrival to its record, by
+    the host's clock (infinite for one that did not come back with it); None
+    for a closed loop, whose lookups have no schedule."""
+    if cell.mix["loop"] != "open":
+        return None
+    return [(r.done - r.due) if id(r) in good else math.inf for r in sent]
+
+
 def e2e_metrics(cell: Cell, sent: List[Lookup], good: set, t0: float,
                 seconds: float, setup_s: float,
                 log: Callable[[str], None] = lambda s: None) -> dict:
@@ -608,8 +779,8 @@ def e2e_metrics(cell: Cell, sent: List[Lookup], good: set, t0: float,
     limit: at infinite latency, and not among those answered."""
     t1 = t0 + seconds
     values = {"setup_s": setup_s}
-    if cell.mix["loop"] == "open":
-        lat = [(r.done - r.due) if id(r) in good else math.inf for r in sent]
+    lat = latencies(cell, sent, good)
+    if lat is not None:
         values["lookup_p50_ms"] = 1e3 * percentile(lat, 50)
         values["lookup_p95_ms"] = 1e3 * percentile(lat, 95)
     ok = [r for r in sent if id(r) in good and t0 <= r.done <= t1]

@@ -2,25 +2,26 @@
 
 It imports nothing of the program. It works from the store's raw bytes,
 which the benchmark draws itself, and it reads the program's outputs (the
-query masks the servers were sent, the servers' answers, the record bytes
-a lookup resolved to, the privacy each client was charged) only to judge
+queries the servers were sent, the servers' answers, the record bytes a
+lookup resolved to, the privacy each client was charged) only to judge
 them:
 
 - a lookup's record is row ``i`` of the raw bytes;
 - a server's answer to one query mask is the XOR of the records the mask
-  selects (plain torch on whatever device the tensors are on);
-- the d masks of one query XOR to the one-hot vector of its index, and
-  each mask bit is set with the scheme's density (θ for Sparse-PIR, 1/2
-  for Chor);
-- a lookup costs the (ε, δ) of the paper's theorems, copied here:
-  Sparse-PIR ε = 4·artanh((1−2θ)^(d−d_a)), δ = 0 (Toledo, Danezis and
-  Goldberg, PETS 2016, Security Theorem 3); Chor ε = δ = 0.
+  selects, and its answer to a list of record ids is those rows (plain
+  torch on whatever device the tensors are on);
+- the masks of one query XOR to the one-hot vector of its index, and
+  each mask bit is set with the scheme's density;
+- a lookup's dummy ids are a uniform draw, without repeats, from the
+  records other than its index;
+- a lookup costs the (ε, δ) of the paper's theorems, which each scheme's
+  laws file copies (``pirbench/schemes/<scheme>.py``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -33,26 +34,12 @@ def store_bytes(n: int, record_bytes: int, seed: int) -> np.ndarray:
     return rng.integers(0, 256, size=(n, record_bytes), dtype=np.uint8)
 
 
-def privacy(scheme: str, d: int, d_a: int, theta: float | None
-            ) -> Tuple[float, float]:
-    """(ε, δ) a lookup of ``scheme`` costs."""
-    if not 0 <= d_a < d:
-        raise ValueError(f"need 0 <= d_a < d, got d={d}, d_a={d_a}")
-    if scheme == "chor":
-        return 0.0, 0.0
-    if scheme == "sparse":
-        x = (1.0 - 2.0 * float(theta)) ** (d - d_a)
-        return (math.inf if x >= 1.0 else 4.0 * math.atanh(x)), 0.0
-    raise ValueError(f"no reference for scheme {scheme!r}")
-
-
-def weight_moments(scheme: str, theta: float | None, d: int, odd: bool
+def weight_moments(density: float, servers: int, odd: bool
                    ) -> Tuple[float, float]:
     """Mean and variance of the ones a query's masks set in one column:
-    Binomial(d, θ) given the column's parity (odd in the column asked
-    for, even elsewhere). Chor's masks are uniform given the parity:
-    θ = 1/2. Summed over the exact pmf."""
-    t = 0.5 if scheme == "chor" else float(theta)
+    Binomial(servers, density) given the column's parity (odd in the
+    column asked for, even elsewhere). Summed over the exact pmf."""
+    t, d = float(density), int(servers)
     ws = [w for w in range(d + 1) if w % 2 == int(odd)]
     logp = [math.lgamma(d + 1) - math.lgamma(w + 1) - math.lgamma(d - w + 1)
             + w * math.log(t) + (d - w) * math.log1p(-t) for w in ws]
@@ -64,16 +51,37 @@ def weight_moments(scheme: str, theta: float | None, d: int, odd: bool
     return mean, var
 
 
-def density_z(scheme: str, theta: float | None, d: int, n: int,
-              queries: int, ones: float) -> float:
-    """How many standard deviations the ones counted in ``queries``
-    queries' masks lie from what the scheme draws: each query has n − 1
-    even columns and one odd, the columns independent."""
-    me, ve = weight_moments(scheme, theta, d, odd=False)
-    mo, vo = weight_moments(scheme, theta, d, odd=True)
-    mean = queries * ((n - 1) * me + mo)
-    var = queries * ((n - 1) * ve + vo)
-    return abs(ones - mean) / math.sqrt(var)
+def density_z(queries: Mapping[int, int], density: float, n: int,
+              ones: float) -> float:
+    """How many standard deviations the ones counted in the kept queries'
+    masks lie from what the scheme draws; ``queries`` maps a number of
+    servers to the queries kept with that many masks. Each query has
+    n − 1 even columns and one odd, the columns independent."""
+    mean = var = 0.0
+    for servers, k in sorted(queries.items()):
+        me, ve = weight_moments(density, servers, odd=False)
+        mo, vo = weight_moments(density, servers, odd=True)
+        mean += k * ((n - 1) * me + mo)
+        var += k * ((n - 1) * ve + vo)
+    return z_score(ones, mean, var) if queries else math.inf
+
+
+def dummy_moments(n: int, index: int, k: int) -> Tuple[float, float]:
+    """Mean and variance of the sum of ``k`` ids drawn uniformly without
+    repeats from [0, n) less ``index``."""
+    size = n - 1
+    mean = (n * (n - 1) / 2 - index) / size
+    var = ((n - 1) * n * (2 * n - 1) / 6 - index * index) / size - mean ** 2
+    finite = (size - k) / (size - 1) if size > 1 else 0.0
+    return k * mean, k * var * finite
+
+
+def z_score(got: float, mean: float, var: float) -> float:
+    """|got − mean| in standard deviations; a law with no spread allows
+    its mean alone."""
+    if var <= 0:
+        return 0.0 if got == mean else math.inf
+    return abs(got - mean) / math.sqrt(var)
 
 
 def _xor_rows(rows: torch.Tensor) -> torch.Tensor:

@@ -31,8 +31,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
 
-def forbidden_modules() -> list:
-    return sorted({m.split(".")[0] for m in list(sys.modules)} & FORBIDDEN)
+def forbidden_modules(modules=None) -> list:
+    """The forbidden top-level names among ``modules`` (a table of module
+    names; this process's ``sys.modules`` by default)."""
+    names = list(sys.modules if modules is None else modules)
+    return sorted({m.split(".")[0] for m in names} & FORBIDDEN)
 
 
 def finite(x):

@@ -17,7 +17,23 @@ def tiny_cell(workload: str) -> harness.Cell:
     return cell
 
 
+def scheme_cell(scheme: str, **params) -> harness.Cell:
+    """``ct_sparse.online`` at the tiny size, served by ``scheme`` with
+    ``params`` (t, p, u): a deployment no configuration file states."""
+    cell = tiny_cell("ct_sparse.online")
+    cell.name = f"tiny_{scheme}.online"
+    cell.config.update(name=f"tiny_{scheme}", scheme=scheme, **params)
+    cell.config["limits"] = dict(cell.config["limits"], dummies_z=6.0)
+    return cell
+
+
+def run_cell(cell: harness.Cell, seed: int = 2**31 + 11,
+             seconds: float = 1.0, trace: bool = False,
+             overrides=None) -> dict:
+    return harness.run(cell, seed, seconds, trace, device="cpu",
+                       overrides=overrides)
+
+
 def run_tiny(workload: str, seed: int = 2**31 + 11, seconds: float = 1.0,
              trace: bool = False, overrides=None) -> dict:
-    return harness.run(tiny_cell(workload), seed, seconds, trace,
-                       device="cpu", overrides=overrides)
+    return run_cell(tiny_cell(workload), seed, seconds, trace, overrides)

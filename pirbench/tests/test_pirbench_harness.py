@@ -8,15 +8,16 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
 import torch
 
-from pirbench import harness, reference, yardstick
+from pirbench import harness, reference, schemes, yardstick
 from pirbench.traffic import generator
 
-from _tiny import run_tiny
+from _tiny import run_tiny, tiny_cell
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -98,13 +99,21 @@ def test_a_configuration_reaches_the_program_whole(tmp_path):
         harness.pir_config(dict(cell.config, tau=3), cell.mix)
 
 
-def test_a_scheme_the_reference_cannot_judge_is_refused_before_any_work():
+def test_a_scheme_the_reference_cannot_judge_is_refused_before_any_work(
+        monkeypatch):
     from _tiny import tiny_cell
+    from repro_torch.configs.pir_ct import scheme_from_config
 
     cell = tiny_cell("ct_sparse.online")
-    cell.config.update(scheme="subset", t=3)
-    with pytest.raises(ValueError, match="subset"):
+    cell.config.update(scheme="as-subset", t=3)
+    # the program builds it; the benchmark has no laws for it
+    assert scheme_from_config(harness.pir_config(cell.config, cell.mix))
+    drawn = []
+    monkeypatch.setattr(reference, "store_bytes",
+                        lambda *a: drawn.append(a))
+    with pytest.raises(ValueError, match="as-subset"):
         harness.set_up(cell, 7, torch.device("cpu"), False)
+    assert drawn == []
 
 
 def test_poisson_and_zipf_are_the_programs_copied():
@@ -182,6 +191,23 @@ def test_least_answer_time_dense_and_sparse():
     assert not hasattr(yardstick, "XOR_WORDS_PER_S")
 
 
+def test_least_gather_time():
+    w = 384
+    # 8 lookups x 1 id a server: the rows, their ids, the rows written
+    assert yardstick.gather_s(8, w) == pytest.approx(
+        (8 * w * 4 + 8 * 4 + 8 * w * 4) / 3.35e12)
+    # an id asked twice is read once and written twice
+    assert yardstick.gather_s(8, w, 7) == pytest.approx(
+        (7 * w * 4 + 8 * 4 + 8 * w * 4) / 3.35e12)
+    # the probe counts each server's distinct ids of a traced index batch
+    ids = torch.tensor([[[5], [9], [5], [0]], [[1], [2], [3], [4]]])
+    probe = type("P", (), {"shapes": {3: {"ids": ids}}})()
+    least = harness.Probe.least_s(probe, w, {
+        "scheme": "direct", "n_records": 16, "d": 2, "d_a": 1, "p": 2})
+    assert least == {3: pytest.approx(yardstick.gather_s(4, w, 3)
+                                      + yardstick.gather_s(4, w, 4))}
+
+
 def test_reference_answers_a_tiny_store():
     raw = reference.store_bytes(64, 24, 3)
     assert np.array_equal(raw, reference.store_bytes(64, 24, 3))
@@ -205,12 +231,14 @@ def test_reference_answers_a_tiny_store():
 def test_reference_privacy_is_the_papers():
     from repro_torch.core.accounting import epsilon_sparse
 
-    assert reference.privacy("sparse", 100, 50, 0.25) == \
+    ct = {"n_records": 10**6, "d": 100, "d_a": 50}
+    assert schemes.laws("sparse").privacy(dict(ct, theta=0.25)) == \
         (pytest.approx(epsilon_sparse(0.25, 100, 50), rel=1e-12), 0.0)
-    assert reference.privacy("chor", 100, 50, None) == (0.0, 0.0)
-    assert reference.weight_moments("chor", None, 100, odd=False)[0] == \
-        pytest.approx(50.0)
-    mean, var = reference.weight_moments("sparse", 0.25, 100, odd=True)
+    chor = schemes.laws("chor")
+    assert chor.privacy(ct) == (0.0, 0.0)
+    assert reference.weight_moments(chor.density(ct), chor.servers(ct),
+                                    odd=False)[0] == pytest.approx(50.0)
+    mean, var = reference.weight_moments(0.25, 100, odd=True)
     assert mean == pytest.approx(25.0) and var == pytest.approx(18.75)
 
 
@@ -235,10 +263,8 @@ def test_density_z_separates_the_drawn_theta_from_another():
             total += int(w.sum())
         return total
 
-    assert reference.density_z("sparse", 0.25, d, n, queries,
-                               ones(0.25)) < 5
-    assert reference.density_z("sparse", 0.25, d, n, queries,
-                               ones(0.2)) > 20
+    assert reference.density_z({d: queries}, 0.25, n, ones(0.25)) < 5
+    assert reference.density_z({d: queries}, 0.25, n, ones(0.2)) > 20
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -259,14 +285,52 @@ def test_a_traced_tiny_run_reads_its_counters():
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-def test_forbidden_modules_compare_whole_names(monkeypatch):
+def test_a_traced_open_run_reads_its_tail_and_a_closed_one_none():
+    res = run_tiny("ct_sparse.online", trace=True)
+    assert res["correct"]
+    assert 0 < res["metrics"]["latency_p95_ms"]["value"] < math.inf
+    read = harness.metric_reader("latency_p95_ms")
+    assert read(types.SimpleNamespace(latencies=None)) is None
+    assert read(types.SimpleNamespace(latencies=[0.001] * 19 + [math.inf])
+                ) == math.inf
+
+
+def test_the_set_up_makes_the_copies_buffers_and_warms_the_front():
+    """Nothing the Probe copies into is allocated inside the window, and an
+    open loop's front has served lookups of its own before it opens."""
+    cell = tiny_cell("ct_sparse.online")
+    raw, store, fe, probe = harness.set_up(cell, 2**31 + 5,
+                                           torch.device("cpu"), False)
+    try:
+        cap = harness.pir_config(cell.config, cell.mix).query_batch
+        warm = sum(harness.buckets(cap))
+        # warm() serves every bucket twice on the pipeline, warm_front once
+        # more through the started front
+        assert fe.metrics["queries"] == 3 * warm
+        assert len(probe.slots) == harness.KEEP_BATCHES
+        own = {b.untyped_storage().data_ptr()
+               for pair in probe.slots for b in pair}
+        probe.armed = True
+        futures = [fe.submit("c1", i) for i in range(40)]
+        for f in futures:
+            f.result(timeout=60)
+        assert len(probe.kept) == harness.KEEP_BATCHES
+        for entry in probe.kept:
+            for key in ("queries", "answers"):
+                assert entry[key].untyped_storage().data_ptr() in own
+    finally:
+        fe.close(drain=False)
+
+
+def test_forbidden_modules_compare_whole_names():
     from pirbench import run
 
-    monkeypatch.setitem(sys.modules, "repro_torch_like", sys)
-    assert run.forbidden_modules() == [] or "repro" not in \
-        run.forbidden_modules()
-    monkeypatch.setitem(sys.modules, "repro.core", sys)
-    assert "repro" in run.forbidden_modules()
+    modules = {"torch": sys, "pirbench.harness": sys,
+               "repro_torch.serve": sys, "repro_torch_like": sys}
+    assert run.forbidden_modules(modules) == [] or "repro" not in \
+        run.forbidden_modules(modules)
+    modules["repro.core"] = sys
+    assert "repro" in run.forbidden_modules(modules)
 
 
 def test_a_run_loads_neither_jax_nor_the_jax_package():

@@ -1,6 +1,6 @@
 """The benchmark's fixed arithmetic: the card's published memory bandwidth,
 the union of a trace's intervals, and the least time a batch of server
-answers needs.
+answers needs (``answer_s`` for masks, ``gather_s`` for record ids).
 
 Frozen here so that a change to the program cannot move it. ``union`` and
 ``measure`` are copies of ``chip_smoke.py``'s ``_union`` and ``_measure``;
@@ -55,4 +55,13 @@ def answer_s(n: int, words: int, bucket: int, p: float) -> float:
     distinct = n * (1.0 - (1.0 - p) ** bucket)
     queries = min(bucket * -(-n // 8), selected * 4)
     moved = distinct * words * 4 + queries + bucket * words * 4
+    return moved / HBM_BYTES_PER_S
+
+
+def gather_s(rows: int, words: int, distinct: int | None = None) -> float:
+    """One server's least time for ``rows`` record ids (an index batch:
+    each id a row to return): the ``distinct`` rows among them (all, by
+    default) read once, the 32-bit ids read, and the rows written."""
+    distinct = rows if distinct is None else distinct
+    moved = distinct * words * 4 + rows * 4 + rows * words * 4
     return moved / HBM_BYTES_PER_S
